@@ -3,17 +3,23 @@
 The JAX package ``galaxy_deconv_tpu`` stays the reference; this package
 mirrors its layout so each counterpart is easy to find:
 
-- ``ops``      — Fourier helpers, the matmul-DFT spectra, edge padding, and
-                 the x-update solve kernel (``csrc/x_update_solve.cu``).
+- ``ops``      — Fourier helpers, the matmul-DFT spectra, resampling and edge
+                 padding, and the x-update solve kernel and its backward
+                 (``csrc/x_update_solve.cu``).
 - ``nets``     — ResUNet, SubNet and their blocks as NCHW ``nn.Module``s.
 - ``models``   — the flagship ``UnrolledADMMGaussian``.
 - ``metrics``  — the batched FPFS shear estimator.
-- ``utils``    — the flax -> torch weight bridge and device resolution.
+- ``losses``   — MultiScale and MSE losses, run names.
+- ``data``     — readers of the packed dataset.
+- ``train``    — train state, clipped Adam, checkpoints, the train loop.
+- ``utils``    — the flax -> torch bridge (weights and train state), device
+                 resolution.
 - ``pipeline`` — model + shear measurement, the counterpart of ``bench.py``.
+- ``config``, ``cli`` — ``python -m galaxy_deconv_tpu_torch train ...``.
 
 Public functions take the JAX layout, (B, H, W) stamps.  Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.  Nothing here
-imports jax, flax, orbax or the JAX package.
+the CUDA device unless the caller passes ``device="cpu"`` (``--device cpu``).
+Nothing here imports jax, flax, orbax or the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,6 @@
+"""``python -m galaxy_deconv_tpu_torch train ...``: the command-line interface."""
+
+from galaxy_deconv_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    main()

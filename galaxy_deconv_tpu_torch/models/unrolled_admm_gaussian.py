@@ -15,6 +15,8 @@ Per forward pass on (B, 48, 48) stamps:
 The spectra stay float32; ``dtype`` sets the ResUNet's and SubNet's compute
 type (bfloat16 as ``bench.py`` runs them by default).  As in flax, the
 SubNet's BatchNorm keeps float32 statistics and parameters in every dtype.
+The JAX model's ``train`` flag is ``model.train()``: the SubNet's BatchNorm
+then normalises with batch statistics and updates its running ones.
 """
 
 from __future__ import annotations

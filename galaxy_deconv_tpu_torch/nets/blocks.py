@@ -44,10 +44,28 @@ class UpConvTranspose(nn.ConvTranspose2d):
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm as flax's ``BatchNorm(dtype=...)`` computes it: statistics and
     affine parameters stay float32, the normalisation runs in float32, and
-    the result is cast back to the input's dtype."""
+    the result is cast back to the input's dtype.
+
+    In train mode it normalises with the batch statistics and updates the
+    running ones as flax does, which torch's own BatchNorm does not: the
+    variance is the biased ``mean(x^2) - mean(x)^2`` clamped at 0 (torch
+    stores the unbiased n/(n-1) one), and running = (1 - momentum) * running
+    + momentum * batch, flax's momentum 0.9 being this class's 0.1.
+    """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        if not self.training:
+            return super().forward(x.float()).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var + self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class DoubleConv(nn.Module):

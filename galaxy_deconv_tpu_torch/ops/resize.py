@@ -1,9 +1,18 @@
-"""Edge padding for the ResUNet (counterpart of ``galaxy_deconv_tpu/ops/resize.py:29-41``)."""
+"""Average downsampling and the ResUNet's edge padding (counterparts of
+``galaxy_deconv_tpu/ops/resize.py:15-41``)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def average_downsample(x: torch.Tensor, rate: int = 4) -> torch.Tensor:
+    """Average-pool the trailing two axes by ``rate`` (non-overlapping)."""
+    H, W = x.shape[-2], x.shape[-1]
+    if H % rate or W % rate:
+        raise ValueError(f"image size ({H},{W}) not divisible by rate {rate}")
+    return x.reshape(*x.shape[:-2], H // rate, rate, W // rate, rate).mean(dim=(-3, -1))
 
 
 def pad_to_multiple_edge(x: torch.Tensor, multiple: int = 8) -> tuple[torch.Tensor, tuple[int, int]]:

@@ -12,6 +12,10 @@ of JAX.  It inverts the layout maps of ``galaxy_deconv_tpu/utils/convert_torch.p
 flax's ConvTranspose is a fractionally strided convolution, so its taps are
 torch's ConvTranspose2d taps flipped in space.  SubNet's first Dense needs no
 column permutation: this package's SubNet flattens in flax's HWC order.
+
+The train state crosses too: optax's ``ScaleByAdamState`` moments ``mu`` and
+``nu`` have the parameters' tree and layouts, so the same maps carry them
+across element for element (:func:`train_state_payload`).
 """
 
 from __future__ import annotations
@@ -37,13 +41,12 @@ def dense_weight(k) -> np.ndarray:
     return np.asarray(k).T
 
 
-def _batch_norm(p: Mapping, s: Mapping, key: str) -> dict:
-    return {
-        f"{key}.weight": p["scale"],
-        f"{key}.bias": p["bias"],
-        f"{key}.running_mean": s["mean"],
-        f"{key}.running_var": s["var"],
-    }
+def _batch_norm(p: Mapping, s: Mapping | None, key: str) -> dict:
+    sd = {f"{key}.weight": p["scale"], f"{key}.bias": p["bias"]}
+    if s is not None:
+        sd.update({f"{key}.running_mean": s["mean"], f"{key}.running_var": s["var"],
+                   f"{key}.num_batches_tracked": np.zeros((), np.int64)})
+    return sd
 
 
 def resunet_state_dict(p: Mapping, prefix: str = "") -> dict:
@@ -64,8 +67,9 @@ def resunet_state_dict(p: Mapping, prefix: str = "") -> dict:
     return sd
 
 
-def subnet_state_dict(p: Mapping, s: Mapping, prefix: str = "") -> dict:
-    """flax SubNet params/batch_stats -> SubNet state_dict entries (numpy)."""
+def subnet_state_dict(p: Mapping, s: Mapping | None, prefix: str = "") -> dict:
+    """flax SubNet params/batch_stats -> SubNet state_dict entries (numpy);
+    parameters only when ``s`` is None."""
     sd: dict = {}
     for name, sub in p.items():
         kind, _, k = name.rpartition("_")
@@ -74,8 +78,8 @@ def subnet_state_dict(p: Mapping, s: Mapping, prefix: str = "") -> dict:
             for j in (0, 1):
                 sd[f"{base}.conv{j}.weight"] = conv_weight(sub[f"Conv_{j}"]["kernel"])
                 sd[f"{base}.conv{j}.bias"] = sub[f"Conv_{j}"]["bias"]
-                sd.update(_batch_norm(sub[f"BatchNorm_{j}"], s[name][f"BatchNorm_{j}"], f"{base}.bn{j}"))
-                sd[f"{base}.bn{j}.num_batches_tracked"] = np.zeros((), np.int64)
+                stats = None if s is None else s[name][f"BatchNorm_{j}"]
+                sd.update(_batch_norm(sub[f"BatchNorm_{j}"], stats, f"{base}.bn{j}"))
         elif kind == "Dense":
             sd[f"{prefix}dense.{k}.weight"] = dense_weight(sub["kernel"])
             sd[f"{prefix}dense.{k}.bias"] = sub["bias"]
@@ -88,16 +92,30 @@ def unrolled_admm_gaussian_state_dict(params: Mapping, batch_stats: Mapping | No
     """flax variables of ``UnrolledADMMGaussian`` -> this package's state_dict.
 
     ``params`` holds ``ResUNet_0`` and either ``SubNet_0`` (with its BN
-    statistics under ``batch_stats``) or ``rho_iters``.
+    statistics under ``batch_stats``; without them, parameters only) or
+    ``rho_iters``.
     """
     sd: dict = {}
     for name, sub in params.items():
         if name == "ResUNet_0":
             sd.update(resunet_state_dict(sub, "resunet."))
         elif name == "SubNet_0":
-            sd.update(subnet_state_dict(sub, (batch_stats or {})["SubNet_0"], "subnet."))
+            sd.update(subnet_state_dict(sub, None if batch_stats is None else batch_stats["SubNet_0"], "subnet."))
         elif name == "rho_iters":
             sd["rho_iters"] = sub
         else:
             raise KeyError(f"unexpected parameter group {name!r}")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def train_state_payload(params: Mapping, batch_stats: Mapping | None, adam_mu: Mapping, adam_nu: Mapping,
+                        adam_count, step) -> dict:
+    """A JAX ``TrainState`` trained with ``default_optimizer`` -> this
+    package's checkpoint payload (``train/checkpoint.py::load_payload``).
+
+    ``adam_mu``, ``adam_nu`` and ``adam_count`` are the fields of the
+    ``ScaleByAdamState`` in the optax chain's state, as numpy.
+    """
+    return {"step": int(step), "model": unrolled_admm_gaussian_state_dict(params, batch_stats),
+            "opt_state": {"count": int(adam_count), "mu": unrolled_admm_gaussian_state_dict(adam_mu),
+                          "nu": unrolled_admm_gaussian_state_dict(adam_nu)}}

@@ -1,6 +1,8 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution and float32 precision for the port's entry points."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -12,3 +14,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_only():
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block, the
+    precision the JAX package's float32 nets are defined in; restored after."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,9 +1,10 @@
 """Rules of the PyTorch port: it runs where JAX does not exist.
 
 Every module of galaxy_deconv_tpu_torch and chip_smoke.py imports with jax,
-flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline phases
-run on the CPU (at a tiny size, through the plain x-update solve) with them
-blocked.  chip_smoke.py exits non-zero and prints no result without a card,
+flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline and
+training phases (the latter through ``cli train``) and the package's
+``python -m`` entry point run on the CPU (at a tiny size, through the plain
+x-update solve and its plain backward) with them blocked.  chip_smoke.py exits non-zero and prints no result without a card,
 and when it stands alone in a directory."""
 
 import ast
@@ -94,6 +95,36 @@ print("phases ok")
     res = run_blocked(body)
     assert res.returncode == 0, res.stderr
     assert "phases ok" in res.stdout
+
+
+def test_chip_smoke_train_phase_runs_on_cpu_without_jax():
+    body = """
+import importlib.util, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+res = cs.phase_train_fp32(torch.device("cpu"), B=4, n_stamps=12, n_iters=1, features=(8, 8, 8, 8), n_check=2,
+                          n_steps=4, n_warm=1)
+assert res["forward_launches"] == res["backward_launches"] == 0  # CPU tensors take the plain versions
+print("train phase ok")
+"""
+    res = run_blocked(body)
+    assert res.returncode == 0, res.stderr
+    assert "train phase ok" in res.stdout
+    assert "checkpoint" in res.stdout and "bit-exact" in res.stdout
+
+
+def test_package_entry_point_runs_without_jax():
+    body = """
+import runpy, sys
+sys.argv = ["galaxy_deconv_tpu_torch", "train", "--help"]
+try:
+    runpy.run_module("galaxy_deconv_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+"""
+    res = run_blocked(body)
+    assert res.returncode == 0, res.stderr
+    assert "--data_path" in res.stdout and "--device" in res.stdout
 
 
 def test_chip_smoke_main_fails_without_card(capsys):

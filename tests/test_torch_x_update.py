@@ -1,8 +1,10 @@
 """Port parity: the x-update solve (ops/x_update.py) and the model's x_update
 against the JAX package's TPU kernel, run in interpret mode, and its jnp
 reference.  Solve tolerances 1e-5 and drop-in tolerances 1e-4, as in
-tests/test_pallas.py.  The kernel itself runs only on a CUDA device: that test
-is marked ``gpu`` and skips elsewhere."""
+tests/test_pallas.py.  The solve's gradient (the autograd function and the
+backward kernel's plain version) against torch autograd and jax.grad.  The
+kernels themselves run only on a CUDA device: those tests are marked ``gpu``
+and skip elsewhere."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,100 @@ def test_kernel_matches_plain_on_card(cuda_device):
         torch.cuda.synchronize()
         assert xu.x_update_solve.launches == before + 1
         torch.testing.assert_close(got, xu.x_update_solve_plain(*args), rtol=1e-5, atol=1e-5)
+
+
+# --- the solve's gradient (autograd function XUpdateSolve, backward kernel) ---
+
+
+def rho_term_scale(G, X, hth, rho):
+    """Per galaxy, the sum of the magnitudes of grad_rho's terms: float32
+    rounding of that 4,704-term sum, in any order, is ~1e-8 of it."""
+    d = rho.reshape(-1, 1, 1) + hth
+    return (((G.real * X.real).abs() + (G.imag * X.imag).abs()) / d).sum(dim=(1, 2)).double()
+
+
+def as64(t):
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
+def test_backward_plain_matches_autograd_of_plain(rng):
+    # float64: the two compute the same formulas, so they agree to rounding (1e-12)
+    Y, Ht, Z, hth, rho = [as64(torch.from_numpy(a)) for a in batch_first(rng, 4)]
+    Z.requires_grad_()
+    rho.requires_grad_()
+    X = xu.x_update_solve_plain(Y, Ht, Z, hth, rho)
+    G = as64(torch.from_numpy(batch_first(rng, 4)[0]))
+    want_z, want_rho = torch.autograd.grad(X, (Z, rho), grad_outputs=G)
+    got_z, got_rho = xu.x_update_solve_backward_plain(G, X.detach(), hth, rho.detach())
+    torch.testing.assert_close(got_z, want_z, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(got_rho, want_rho, rtol=1e-12, atol=1e-12)
+
+
+def test_solve_function_gradient_on_cpu(rng):
+    # x_update_solve's gradient (float32, the plain backward on the CPU)
+    # against the float64 autograd of the plain solve: grad_Z at 1e-5, grad_rho
+    # at 1e-6 of the sum of its terms' magnitudes (see rho_term_scale).
+    args = [torch.from_numpy(a) for a in batch_first(rng, 4)]
+    G = torch.from_numpy(batch_first(rng, 4)[0])
+    Z, rho = args[2].clone().requires_grad_(), args[4].clone().requires_grad_()
+    X = xu.x_update_solve(args[0], args[1], Z, args[3], rho)
+    got_z, got_rho = torch.autograd.grad(X, (Z, rho), grad_outputs=G)
+    Z64, rho64 = as64(args[2]).requires_grad_(), as64(args[4]).requires_grad_()
+    X64 = xu.x_update_solve_plain(as64(args[0]), as64(args[1]), Z64, as64(args[3]), rho64)
+    want_z, want_rho = torch.autograd.grad(X64, (Z64, rho64), grad_outputs=as64(G))
+    np.testing.assert_allclose(got_z.numpy(), want_z.numpy(), rtol=1e-5, atol=1e-5)
+    scale = rho_term_scale(G, X.detach(), args[3], args[4])
+    assert float(((got_rho.double() - want_rho).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["Y", "Ht", "HtH"])
+def test_solve_refuses_gradient_for_observation_spectra(rng, name):
+    Y, Ht, Z, hth, rho = [torch.from_numpy(a) for a in batch_first(rng, 2)]
+    {"Y": Y, "Ht": Ht, "HtH": hth}[name].requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        xu.x_update_solve(Y, Ht, Z, hth, rho)
+    with torch.no_grad():
+        xu.x_update_solve(Y, Ht, Z, hth, rho)
+
+
+@pytest.mark.parametrize("impl", ["fft", "matmul"])
+def test_model_x_update_gradient_matches_jax(rng, impl):
+    # d/dz and d/drho of sum(w * x_update(...)) against jax.grad of the JAX
+    # x_update(impl="xla" / "matmul"), at the drop-in tolerance of 1e-4
+    # (grad_rho relative to its largest entry: a sum over 96 x 49 spectra).
+    # Readings: grad_z 1.2e-6 absolute (max 3.4), grad_rho 5.9e-7 relative.
+    import jax
+
+    y, psf, z, u, rho = xupdate_inputs(rng)
+    w = rng.standard_normal(z.shape).astype(np.float32)
+    jimpl = {"fft": "xla", "matmul": "matmul"}[impl]
+    Yj, Htj, HtHj = jmodel.gaussian_spectra(jnp.asarray(y), jnp.asarray(psf), jimpl)
+
+    def loss(zz, rr):
+        return jnp.sum(jnp.asarray(w) * jmodel.x_update(Yj, Htj, HtHj, zz, jnp.asarray(u), rr, (48, 48), jimpl))
+
+    want_z, want_rho = (np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(jnp.asarray(z), jnp.asarray(rho)))
+    Y, Ht, HtH = tmodel.gaussian_spectra(torch.from_numpy(y), torch.from_numpy(psf), impl)
+    zt, rt = torch.from_numpy(z).requires_grad_(), torch.from_numpy(rho).requires_grad_()
+    (torch.from_numpy(w) * tmodel.x_update(Y, Ht, HtH, zt, torch.from_numpy(u), rt, (48, 48), impl)).sum().backward()
+    np.testing.assert_allclose(zt.grad.numpy(), want_z, rtol=1e-4, atol=1e-4)
+    assert np.abs(rt.grad.numpy() - want_rho).max() <= 1e-4 * np.abs(want_rho).max()
+
+
+@pytest.mark.gpu
+def test_backward_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(4)
+    for B in (32, 256, 3):
+        Y, Ht, Z, hth, rho = [torch.from_numpy(a).to(cuda_device) for a in batch_first(rng, B)]
+        Z.requires_grad_()
+        rho.requires_grad_()
+        G = torch.from_numpy(batch_first(rng, B)[0]).to(cuda_device)
+        fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
+        X = xu.x_update_solve(Y, Ht, Z, hth, rho)
+        got_z, got_rho = torch.autograd.grad(X, (Z, rho), grad_outputs=G)
+        torch.cuda.synchronize()
+        assert (xu.x_update_solve.launches, xu.x_update_solve_backward.launches) == (fwd + 1, bwd + 1)
+        want_z, want_rho = xu.x_update_solve_backward_plain(as64(G), as64(X.detach()), as64(hth), as64(rho.detach()))
+        torch.testing.assert_close(got_z, want_z.to(torch.complex64), rtol=1e-5, atol=1e-5)
+        scale = rho_term_scale(G, X.detach(), hth, rho.detach())
+        assert float(((got_rho.double() - want_rho).abs() / scale).max()) <= 1e-6
