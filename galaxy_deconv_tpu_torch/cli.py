@@ -17,7 +17,7 @@ from galaxy_deconv_tpu_torch.data import GalaxyDataset
 from galaxy_deconv_tpu_torch.losses import build_loss, get_model_name
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.train import create_train_state, default_optimizer, fit, restore_checkpoint
-from galaxy_deconv_tpu_torch.utils.device import fp32_only, resolve_device
+from galaxy_deconv_tpu_torch.utils.device import resolve_device
 
 
 def _cmd_train(ns):
@@ -38,10 +38,10 @@ def _cmd_train(ns):
         state = restore_checkpoint(cfg.model_save_path, model_name, cfg.pretrained_epochs, state)
         logging.info("resumed from epoch %d", cfg.pretrained_epochs)
 
-    with fp32_only():
-        state, hist = fit(model, state, optimizer, loss_fn, ds, n_epochs=cfg.n_epochs, batch_size=cfg.batch_size,
-                          train_val_split=cfg.train_val_split, seed=cfg.seed, model_name=model_name,
-                          save_path=cfg.model_save_path, pretrained_epochs=cfg.pretrained_epochs)
+    # fit's train and eval steps run with TF32 off
+    state, hist = fit(model, state, optimizer, loss_fn, ds, n_epochs=cfg.n_epochs, batch_size=cfg.batch_size,
+                      train_val_split=cfg.train_val_split, seed=cfg.seed, model_name=model_name,
+                      save_path=cfg.model_save_path, pretrained_epochs=cfg.pretrained_epochs)
     print(f"final train_loss={hist['train_loss'][-1]:.5g} val_loss={hist['val_loss'][-1]:.5g}")
     return state, hist
 

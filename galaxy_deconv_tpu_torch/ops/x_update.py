@@ -14,10 +14,13 @@ element, no shared memory.  There is no single PyTorch call for this function.
 :func:`x_update_solve` goes through the autograd function :class:`XUpdateSolve`
 on every device.  On a CUDA tensor its forward launches the kernel and its
 backward the backward kernel, ``x_update_solve_backward`` in the same source
-(one block per galaxy, 28 bytes per element: 10.1 us at (256, 96, 49)); each
-raises if its launch fails.  On a CPU tensor they run
-:func:`x_update_solve_plain` and :func:`x_update_solve_backward_plain`.  Each
-kernel launch adds one to ``x_update_solve.launches`` or
+(28 bytes per element: 10.1 us at (256, 96, 49); S blocks per galaxy, S
+picked by the launcher, in one thread-block cluster when S > 1, their partial
+sums of grad_rho combined through distributed shared memory in a fixed order,
+so the result is the same bit for bit every run); each raises if its launch
+fails.  On a CPU tensor they run :func:`x_update_solve_plain` and
+:func:`x_update_solve_backward_plain`.  Each kernel launch adds one to
+``x_update_solve.launches`` or
 ``x_update_solve_backward.launches``.  Gradients flow to Z and rho only: Y, Ht
 and HtH come from the observations and the PSF, which no training path
 differentiates, so the function raises if any of them requires grad.

@@ -14,12 +14,17 @@ from torch import nn
 
 from galaxy_deconv_tpu_torch.metrics.shear import estimate_shear
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
-from galaxy_deconv_tpu_torch.utils.device import resolve_device
+from galaxy_deconv_tpu_torch.utils.device import fp32_only, resolve_device
+
+# the standard deviation of N(0, 1) truncated to [-2, 2], as flax's variance_scaling divides by it
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def init_parameters(model: nn.Module, seed: int) -> None:
     """Fill ``model`` from a CPU ``torch.Generator`` seeded with ``seed``, as
-    flax initialises: weights N(0, 1/fan_in), biases 0, BatchNorm identity,
+    flax initialises: weights from flax's default ``lecun_normal``, a normal
+    truncated at two standard deviations and scaled to variance 1/fan_in (so
+    |w| * sqrt(fan_in) <= 2 / 0.8796...); biases 0, BatchNorm identity,
     rho_iters 1.  The same seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -29,7 +34,10 @@ def init_parameters(model: nn.Module, seed: int) -> None:
                 # fan_in of the flax kernel: inputs x taps (torch keeps
                 # ConvTranspose2d weights as (in, out, kh, kw))
                 fan_in = w.shape[0 if isinstance(mod, nn.ConvTranspose2d) else 1] * math.prod(w.shape[2:])
-                w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(fan_in))
+                std = 1.0 / (math.sqrt(fan_in) * _TRUNCATED_NORMAL_STD)
+                draw = torch.empty(w.shape)
+                nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=gen)
+                w.copy_(draw)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.BatchNorm2d):
@@ -52,7 +60,8 @@ class Pipeline:
     def reconstruct(self, obs, psf, alpha) -> torch.Tensor:
         """(B, H, W) reconstructions on the pipeline's device."""
         obs = self._tensor(obs)
-        return self.model(obs, self._tensor(psf), self._tensor(alpha).reshape(obs.shape[0]))
+        with fp32_only():  # fp32 nets run in fp32, not TF32; the spectra are fp32 whatever the nets' type
+            return self.model(obs, self._tensor(psf), self._tensor(alpha).reshape(obs.shape[0]))
 
     @torch.inference_mode()
     def __call__(self, obs, psf, alpha) -> torch.Tensor:
@@ -66,7 +75,9 @@ def build_pipeline(device: str | torch.device = "cuda", dtype: torch.dtype = tor
 
     Weights come from ``state_dict`` (e.g. the bridge's output for a trained
     checkpoint) or, without one, from ``seed``.  ``dtype`` is the ResUNet's
-    and SubNet's compute type; the spectra stay float32.  Raises if
+    and SubNet's compute type; the spectra stay float32.  Every call runs
+    with TF32 off (:func:`~galaxy_deconv_tpu_torch.utils.device.fp32_only`),
+    whatever the caller's flags, and restores them after.  Raises if
     ``device`` is CUDA and no card is present.
     """
     dev = resolve_device(device)

@@ -27,6 +27,7 @@ from torch import nn
 from galaxy_deconv_tpu_torch.data.dataset import GalaxyDataset, iterate_batches, train_val_indices
 from galaxy_deconv_tpu_torch.train.checkpoint import save_checkpoint
 from galaxy_deconv_tpu_torch.train.state import ClippedAdam, TrainState, update_is_good
+from galaxy_deconv_tpu_torch.utils.device import fp32_only
 
 logger = logging.getLogger("galaxy_deconv_tpu_torch.train")
 
@@ -43,7 +44,8 @@ def _tensors(batch: dict, device: torch.device) -> tuple[torch.Tensor, ...]:
 def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam):
     """The train step ``(state, batch) -> (state, loss)`` for ``state.model is
     model``; it updates the model and ``state`` in place.  The model's
-    parameters must be float32: the JAX package trains in float32 only."""
+    parameters must be float32: the JAX package trains in float32 only, and
+    the step runs with TF32 off whatever the caller's flags."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     wrong = sorted({str(p.dtype) for p in params.values()} - {"torch.float32"})
     if wrong:
@@ -51,6 +53,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam)
     buffers = list(model.buffers())
     device = _device(model)
 
+    @fp32_only()
     def step(state: TrainState, batch: dict):
         obs, psf, alpha, gt = _tensors(batch, device)
         saved = [b.clone() for b in buffers]
@@ -76,9 +79,11 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam)
 
 
 def make_eval_step(model: nn.Module, loss_fn: Callable):
-    """The eval step ``(state, batch) -> loss``: eval-mode BatchNorm, no grad."""
+    """The eval step ``(state, batch) -> loss``: eval-mode BatchNorm, no grad,
+    TF32 off."""
     device = _device(model)
 
+    @fp32_only()
     @torch.no_grad()
     def step(state: TrainState, batch: dict):
         obs, psf, alpha, gt = _tensors(batch, device)

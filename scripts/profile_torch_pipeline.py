@@ -2,7 +2,8 @@
 
     python3 scripts/profile_torch_pipeline.py
 
-On one CUDA card, TF32 off: for fp32 and bf16 nets, one warm-up call of the
+On one CUDA card, with TF32 off (the pipeline and the train step turn it
+off themselves): for fp32 and bf16 nets, one warm-up call of the
 pipeline (UnrolledADMMGaussian(8), full width, weights from seed 0, then the
 shear estimate) at ``chip_smoke.py``'s batch, then ``FORWARDS`` calls under
 ``torch.profiler``; then one fp32 train step (MultiScale loss, clipped Adam)
@@ -114,9 +115,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_pipeline: no CUDA device is available", file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off")
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off inside the "
+          f"pipeline's calls and the train step")
     for dtype in (torch.float32, torch.bfloat16):
         profile_dtype(dtype)
     profile_train_step()

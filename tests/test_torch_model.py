@@ -111,6 +111,32 @@ def test_bf16_nets_keep_fp32_spectra(rng):
     assert (recs[torch.bfloat16] - recs[torch.float32]).abs().max() < 0.1 * scale
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipeline_runs_with_tf32_off_and_restores_flags(rng, dtype):
+    # the caller turns TF32 on; inside the model's forward both flags read
+    # False in Pipeline.reconstruct and Pipeline.__call__ (whatever the nets'
+    # type: the spectra are float32), and after each call the caller's True is
+    # back
+    y, psf, alpha = inputs(rng)
+    pipe = build_pipeline("cpu", dtype=dtype, n_iters=2, features=(8, 8, 16, 16))
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    seen, after = [], []
+    pipe.model.register_forward_hook(lambda *_: seen.append(flags()))
+    before = flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for call in (pipe.reconstruct, pipe):
+            call(y, psf, alpha)
+            after.append(flags())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    assert seen == [(False, False)] * 2
+    assert after == [(True, True)] * 2
+
+
 def test_unknown_fft_impl_raises():
     with pytest.raises(ValueError):
         UnrolledADMMGaussian(n_iters=1, features=(8, 8, 8, 8), fft_impl="xla")

@@ -415,6 +415,33 @@ def test_eval_step_uses_running_statistics(rng):
         assert torch.equal(v, before[k]), k
 
 
+def tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("kind", ["train", "eval"])
+def test_steps_run_with_tf32_off_and_restore_flags(rng, kind):
+    # the caller turns TF32 on; inside the model's forward both flags read
+    # False (the step enters utils/device.py::fp32_only), and after the step
+    # the caller's True is back
+    batch = make_batch(rng)
+    model = UnrolledADMMGaussian(**NARROW)
+    state, optimizer = create_train_state(model, 0)
+    step = (make_train_step(model, MultiScaleLoss(), optimizer) if kind == "train"
+            else make_eval_step(model, MultiScaleLoss()))
+    seen = []
+    model.register_forward_hook(lambda *_: seen.append(tf32_flags()))
+    before = tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        step(state, batch)
+        after = tf32_flags()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    assert seen == [(False, False)]
+    assert after == (True, True)
+
+
 # --- data, checkpoints, command line -------------------------------------------
 
 

@@ -217,19 +217,26 @@ def test_model_x_update_gradient_matches_jax(rng, impl):
 
 
 @pytest.mark.gpu
-def test_backward_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("shape", [(1, 96, 49), (3, 5, 7), (32, 96, 49), (256, 96, 49)])
+def test_backward_kernel_matches_plain_on_card(cuda_device, shape):
+    # (3, 5, 7): odd K, the kernel's 8-byte path; the others its 16-byte one
+    # with 8, 8 and 1 blocks per galaxy on an H100
     rng = np.random.default_rng(4)
-    for B in (32, 256, 3):
-        Y, Ht, Z, hth, rho = [torch.from_numpy(a).to(cuda_device) for a in batch_first(rng, B)]
-        Z.requires_grad_()
-        rho.requires_grad_()
-        G = torch.from_numpy(batch_first(rng, B)[0]).to(cuda_device)
-        fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
-        X = xu.x_update_solve(Y, Ht, Z, hth, rho)
-        got_z, got_rho = torch.autograd.grad(X, (Z, rho), grad_outputs=G)
-        torch.cuda.synchronize()
-        assert (xu.x_update_solve.launches, xu.x_update_solve_backward.launches) == (fwd + 1, bwd + 1)
-        want_z, want_rho = xu.x_update_solve_backward_plain(as64(G), as64(X.detach()), as64(hth), as64(rho.detach()))
-        torch.testing.assert_close(got_z, want_z.to(torch.complex64), rtol=1e-5, atol=1e-5)
-        scale = rho_term_scale(G, X.detach(), hth, rho.detach())
-        assert float(((got_rho.double() - want_rho).abs() / scale).max()) <= 1e-6
+    B, spectral = shape[0], shape[1:]
+    Y, Ht, Z, hth, rho = [torch.from_numpy(a).to(cuda_device) for a in batch_first(rng, B, spectral)]
+    Z.requires_grad_()
+    rho.requires_grad_()
+    G = torch.from_numpy(batch_first(rng, B, spectral)[0]).to(cuda_device)
+    fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
+    X = xu.x_update_solve(Y, Ht, Z, hth, rho)
+    got_z, got_rho = torch.autograd.grad(X, (Z, rho), grad_outputs=G)
+    torch.cuda.synchronize()
+    assert (xu.x_update_solve.launches, xu.x_update_solve_backward.launches) == (fwd + 1, bwd + 1)
+    want_z, want_rho = xu.x_update_solve_backward_plain(as64(G), as64(X.detach()), as64(hth), as64(rho.detach()))
+    torch.testing.assert_close(got_z, want_z.to(torch.complex64), rtol=1e-5, atol=1e-5)
+    scale = rho_term_scale(G, X.detach(), hth, rho.detach())
+    assert float(((got_rho.double() - want_rho).abs() / scale).max()) <= 1e-6
+    # deterministic: the same inputs give the same bits
+    for _ in range(2):
+        again_z, again_rho = xu.x_update_solve_backward(G, X.detach(), hth, rho.detach())
+        assert torch.equal(again_z, got_z) and torch.equal(again_rho, got_rho)
