@@ -33,7 +33,23 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              and a control, the same forward, loss and backward run outside
              the train step with TF32 on, that the gradient check must
              reject; (c) 20 steps on one batch, whose
-             loss must fall; (d) train-step ms and gal/s at B = 32.
+             loss must fall; (d) train-step ms and gal/s at B = 32;
+7. generate  ``galaxy_deconv_tpu_torch.cli generate`` on the card at the
+             default pupil (512 across, a 1024 FFT grid): 256 train and 1,024
+             test galaxies, all 7 fixed-SNR variants and 3 PSF-error levels
+             of each kind; the tree's files, shapes and finiteness; its gal/s;
+             and 8 galaxies rendered on the card and on the CPU from the same
+             draws (parameters, noise, error signs), held at GEN_REL_TOL;
+8. test      ``galaxy_deconv_tpu_torch.cli test`` on that tree: the shear,
+             time, PSF-shear and PSF-FWHM sweeps, then ``run_psnr_test``, for
+             the default methods (No_Deconv, FPFS, Richard-Lucy(10-100)),
+             Wiener and Unrolled_ADMM_Gaussian(8) at full width with seed-0
+             weights, at B = 512 over all 1,024 test galaxies: each sweep's
+             gal/s, the results files' schema, the flagship's x_update_solve
+             launches (8 per batch, none for the baselines); then Wiener,
+             Richard-Lucy(30) and the flagship's reconstructions of 64 test
+             galaxies and the baselines' rec_shear at SNR 20 against the
+             CPU's.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -58,6 +74,8 @@ import torch
 
 from galaxy_deconv_tpu_torch import cli
 from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, train_val_indices
+from galaxy_deconv_tpu_torch.data import simulate as sim
+from galaxy_deconv_tpu_torch.eval import harness
 from galaxy_deconv_tpu_torch.losses import MultiScaleLoss, get_model_name
 from galaxy_deconv_tpu_torch.metrics.shear import estimate_shear, fpfs_moments
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
@@ -112,6 +130,20 @@ MOMENT_REL_TOL = 1e-4
 LOSS_REL_TOL = 1e-5
 ZERO_GRAD_TOL = 1e-3
 GRAD_REL_TOL = 1.2e-2
+# The simulator and the baselines, card against CPU on the same inputs: float32
+# FFTs (cuFFT against pocketfft) of a 1024-wide pupil and 192- or 48-wide
+# stamps.  Limits fixed before the first reading on the card: renders and
+# reconstructions to max |card - CPU| / max |CPU| of each field; the baselines'
+# shears to |g_card - g_cpu| / (1 + |g_cpu|).  The CPU reads 2e-7 to 3e-6
+# against the JAX package on the same inputs (tests/test_torch_simulate.py,
+# tests/test_torch_eval.py).
+GEN_REL_TOL = 1e-4
+BASELINE_REC_REL_TOL = 1e-4
+BASELINE_SHEAR_TOL = 1e-4
+SNRS = (20, 40, 60, 80, 100, 150, 200)  # cli generate's fixed-SNR variants
+PSF_ERRS = (0.01, 0.05, 0.1)
+EVAL_BATCH = 512  # config.py's eval_batch_size
+EVAL_METHODS = (*cli.DEFAULT_METHODS, "Wiener", "Unrolled_ADMM_Gaussian(8)")
 
 
 def bench_inputs(B: int, seed: int = 0):
@@ -595,10 +627,153 @@ def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP[
             "batch": B, "timed_steps": len(times) - n_warm}
 
 
+def phase_generate(device, root: pathlib.Path, n_train=256, n_test=1024, pupil_n=512, chunk=256, errs=PSF_ERRS,
+                   n_check=N_CPU_CHECK) -> dict:
+    """``cli generate`` on ``device`` into ``root``, the tree checked, and
+    ``n_check`` galaxies rendered on the device and on the CPU from the same draws."""
+    _sync(device)
+    t0 = time.perf_counter()
+    cli.main(["generate", "--data_path", str(root), "--n_train", str(n_train), "--n_test", str(n_test),
+              "--pupil_n", str(pupil_n), "--chunk", str(chunk), "--seed", "0", "--device", device.type,
+              "--errs", *map(str, errs)])
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    scenes = n_train + n_test * (1 + len(SNRS))  # PSF + galaxy + observation renders
+    psf_only = n_test * 2 * len(errs)
+    splits = (("train", n_train), ("test", n_test))
+    want = {f"{s}/{k}.npy": (n, 48, 48) for s, n in splits for k in ("obs", "psf", "gt")}
+    want.update({f"test/{v}_{snr}.npy": (n_test, 48, 48) for snr in SNRS for v in ("obs", "gt")})
+    want.update({f"test/psf_{kind}_err_{e}.npy": (n_test, 48, 48) for kind in ("shear", "fwhm") for e in errs})
+    want.update({f"{s}/{k}.npy": (n,) for s, n in splits for k in ("alpha", "snr", "gal_g1", "gal_g2")})
+    for name, shape in want.items():
+        a = np.load(root / name)
+        if a.shape != shape or a.dtype != np.float32 or not np.isfinite(a).all():
+            raise AssertionError(f"generate: {name} is {a.dtype} {a.shape}, finite {np.isfinite(a).all()}")
+    psf_sum = np.load(root / "test" / "psf.npy").sum(axis=(1, 2))
+    if not np.allclose(psf_sum, 1 / 16, rtol=1e-4):
+        raise AssertionError(f"generate: PSF stamps sum to {psf_sum.min()}-{psf_sum.max()}, not 1/16")
+    print(f"generate ({device.type}): {n_train} train + {n_test} test galaxies, {len(SNRS)} SNR variants, "
+          f"{len(errs)} PSF-error levels of each kind, pupil {pupil_n} on a {2 * pupil_n} grid: {seconds:.2f} s, "
+          f"{(n_train + n_test) / seconds:.1f} gal/s ({scenes / seconds:.1f} scenes/s over {scenes} PSF + galaxy + "
+          f"observation renders, plus {psf_only} PSF-only renders; host clock around the command, file writes "
+          f"included); {len(want)} files of the expected shapes, finite, PSFs summing to 1/16")
+
+    # the same draws rendered on the device and on the CPU
+    cfg = sim.SimulationConfig(pupil_n=pupil_n, pupil_pad=2 * pupil_n)
+    pgen, ngen, sgen = sim.chunk_generators(12345, device)
+    params, noise, signs = sim.sample_params(pgen, n_check, cfg), sim.draw_noise(ngen, n_check, cfg), \
+        sim.draw_signs(sgen, n_check)
+    out = sim.render_batch(params, noise, cfg)
+    out["psf_shear_err"] = sim.render_perturbed_psfs(params, signs, cfg, shear_err=errs[-1])
+    out["psf_fwhm_err"] = sim.render_perturbed_psfs(params, signs, cfg, fwhm_err=errs[-1])
+    cpu = {k: v.cpu() for k, v in params.items()}
+    ref = sim.render_batch(cpu, noise.cpu(), cfg)
+    ref["psf_shear_err"] = sim.render_perturbed_psfs(cpu, signs.cpu(), cfg, shear_err=errs[-1])
+    ref["psf_fwhm_err"] = sim.render_perturbed_psfs(cpu, signs.cpu(), cfg, fwhm_err=errs[-1])
+    rel = {k: float((out[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()) for k in ref}
+    print(f"generate ({device.type}) vs CPU, {n_check} galaxies from the same draws: max |d| / max |CPU| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()) + f" (tol {GEN_REL_TOL})")
+    if max(rel.values()) > GEN_REL_TOL:
+        raise AssertionError("the device's renders disagree with the CPU's")
+    return {"seconds": seconds, "gal_per_s": (n_train + n_test) / seconds, "scenes_per_s": scenes / seconds,
+            "rel": rel, "n_test": n_test}
+
+
+def _check_results(res: pathlib.Path, method: str, n_gal: int, snrs, errs) -> None:
+    """The results files of one method after every sweep: the JAX package's schema."""
+    r = json.loads((res / method / "results.json").read_text())
+    keys = {"rec_shear", "data_root", "psnr_mean", "psnr_median"} | ({"gt_shear"} if method == "No_Deconv" else set())
+    if set(r) != {*map(str, snrs), "time", "time_spread", "meta"}:
+        raise AssertionError(f"{method}/results.json keys {sorted(r)}")
+    for snr in map(str, snrs):
+        if set(r[snr]) != keys:
+            raise AssertionError(f"{method}/results.json[{snr}] keys {sorted(r[snr])}")
+        for k in ("rec_shear", "gt_shear"):
+            if k in r[snr] and (np.shape(r[snr][k]) != (n_gal, 3) or not np.isfinite(r[snr][k]).all()):
+                raise AssertionError(f"{method} snr {snr} {k}: shape {np.shape(r[snr][k])} or not finite")
+    if len(r["time"]) != 2 or len(r["time_spread"]) != 2:
+        raise AssertionError(f"{method}: time {r['time']}, time_spread {r['time_spread']}")
+    for kind in ("shear", "fwhm"):
+        p = json.loads((res / method / f"results_psf_{kind}_err.json").read_text())
+        if set(p) != {*map(str, errs), "meta"} or any(np.shape(p[str(e)]["rec_shear"]) != (n_gal, 3) for e in errs):
+            raise AssertionError(f"{method}/results_psf_{kind}_err.json: keys {sorted(p)}")
+
+
+def phase_test(device, root: pathlib.Path, res: pathlib.Path, card: str, methods=EVAL_METHODS,
+               flagship="Unrolled_ADMM_Gaussian(8)", n_gal=1024, batch=EVAL_BATCH, snrs=SNRS, errs=PSF_ERRS,
+               n_check=64) -> dict:
+    """``cli test`` on ``device`` over ``root``: every sweep of every method, timed;
+    the schema; the flagship's kernel launches; the card against the CPU."""
+    base = ["test", "--data_path", str(root), "--result_path", str(res), "--n_gal", str(n_gal),
+            "--eval_batch_size", str(batch), "--device", device.type, "--snrs", *map(str, snrs),
+            "--errs", *map(str, errs)]
+    batches = -(-n_gal // batch)
+    timed = max(batch, n_gal // batch * batch)
+    # per sweep: (galaxies, batches); time: 2 warm-up sweeps of one batch, then 3 timed sweeps
+    per_snr, per_err = (len(snrs) * n_gal, len(snrs) * batches), (len(errs) * n_gal, len(errs) * batches)
+    sweeps = {"shear": per_snr, "time": (None, 2 + 3 * timed // batch), "psf_shear": per_err, "psf_fwhm": per_err,
+              "psnr": per_snr}
+    n_iters = int(flagship.rsplit("(", 1)[1].rstrip(")"))
+    rates, launches = {}, {}
+    for method in methods:
+        xu.x_update_solve.launches = 0
+        for kind, (gals, _) in sweeps.items():
+            _sync(device)
+            t0 = time.perf_counter()
+            if kind == "psnr":  # not a cli sweep, as in the JAX package
+                harness.run_psnr_test(method, root, res, snrs=snrs, n_gal=n_gal, batch_size=batch, device=device)
+            else:
+                cli.main(base + ["--test", kind, "--methods", method])
+            _sync(device)
+            rates[(method, kind)] = gals / (time.perf_counter() - t0) if gals else None
+        launches[method] = xu.x_update_solve.launches
+        r = json.loads((res / method / "results.json").read_text())
+        rates[(method, "time")] = r["time"][1] / r["time"][0]
+        _check_results(res, method, n_gal, snrs, errs)
+        want = n_iters * sum(nb for _, nb in sweeps.values()) if (device.type == "cuda" and method == flagship) else 0
+        if launches[method] != want:
+            raise AssertionError(f"{method}: x_update_solve launched {launches[method]} times, expected {want}")
+    print(f"test ({device.type}, {card}): gal/s per sweep at B={batch} over {n_gal} test galaxies (shear and psnr "
+          f"over {len(snrs)} SNR variants, psf over {len(errs)} levels; host clock around each command, model build, "
+          f"uploads and the results file included; time: the harness's median of 3 sweeps of {timed} galaxies "
+          f"after warm-up):")
+    for method in methods:
+        print(f"test   {method:26s} " + "  ".join(f"{k} {rates[(method, k)]:9.1f}" for k in sweeps)
+              + f"  x_update_solve launches {launches[method]}")
+
+    # the card against the CPU: reconstructions of n_check test galaxies
+    b = GalaxyDataset(root, "test").batch(np.arange(n_check))
+    rec_rel = {}
+    for method in ("Wiener", "Richard-Lucy(30)", flagship):
+        got, want = (harness.make_apply_fn(method, device=d)(*(torch.as_tensor(b[k], device=d)
+                                                               for k in ("obs", "psf", "alpha"))).cpu()
+                     for d in (device, torch.device("cpu")))
+        rec_rel[method] = float((got - want).abs().max() / want.abs().max())
+    # the baselines' shears at SNR 20: the CPU harness on the first n_check galaxies
+    shear_err = {}
+    for method in methods:
+        if method == flagship:
+            continue
+        ref = np.asarray(harness.run_shear_test(method, root, res / "cpu", snrs=(20,), n_gal=n_check,
+                                                batch_size=n_check, device="cpu")["20"]["rec_shear"])
+        got = np.asarray(json.loads((res / method / "results.json").read_text())["20"]["rec_shear"][:n_check])
+        shear_err[method] = float((np.abs(got - ref) / (1 + np.abs(ref))).max())
+    print(f"test ({device.type}) vs CPU, {n_check} test galaxies: reconstructions max |d| / max |CPU| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rec_rel.items())
+          + f" (tol {BASELINE_REC_REL_TOL}; the flagship {REC_REL_TOL}); rec_shear at SNR 20 max |dg| / (1 + |g|) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in shear_err.items()) + f" (tol {BASELINE_SHEAR_TOL})")
+    if any(v > (REC_REL_TOL if k == flagship else BASELINE_REC_REL_TOL) for k, v in rec_rel.items()):
+        raise AssertionError("the device's reconstructions disagree with the CPU's")
+    if max(shear_err.values()) > BASELINE_SHEAR_TOL:
+        raise AssertionError("the device's baseline shears disagree with the CPU's")
+    return {"rates": rates, "launches": launches, "rec_rel": rec_rel, "shear_err": shear_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -617,10 +792,16 @@ def main() -> int:
     print(f"training ({card}): fp32, TF32 off, B={train['batch']}: {train['step_ms']:.2f} ms per train step, "
           f"{train['gal_per_s']:.1f} gal/s (median of {train['timed_steps']} steps after warm-up, host clock "
           f"around torch.cuda.synchronize())")
-    # the main paths' runs: one fp32 pipeline forward, and the cli's epoch of training
-    kernel["launches"] = fp32["launches"] + train["forward_launches"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        gen = phase_generate(device, pathlib.Path(tmp) / "data")
+        test = phase_test(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results", card)
+    print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
+          f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s")
+    # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training and the flagship's eval sweeps
+    kernel["launches"] = fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
     kernel_bwd["launches"] = train["backward_launches"]
 
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [kernel, kernel_bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,15 +7,18 @@ mirrors its layout so each counterpart is easy to find:
                  padding, and the x-update solve kernel and its backward
                  (``csrc/x_update_solve.cu``).
 - ``nets``     — ResUNet, SubNet and their blocks as NCHW ``nn.Module``s.
-- ``models``   — the flagship ``UnrolledADMMGaussian``.
-- ``metrics``  — the batched FPFS shear estimator.
+- ``models``   — the flagship ``UnrolledADMMGaussian``, the Wiener,
+                 Richardson-Lucy and identity baselines, ``build_model``.
+- ``metrics``  — the batched FPFS shear estimator, PSNR.
 - ``losses``   — MultiScale and MSE losses, run names.
-- ``data``     — readers of the packed dataset.
+- ``data``     — the LSST-like simulator on the device, the dataset
+                 generator and the packed dataset's readers.
 - ``train``    — train state, clipped Adam, checkpoints, the train loop.
+- ``eval``     — the shear, time, PSF-error and PSNR sweeps.
 - ``utils``    — the flax -> torch bridge (weights and train state), device
                  resolution.
 - ``pipeline`` — model + shear measurement, the counterpart of ``bench.py``.
-- ``config``, ``cli`` — ``python -m galaxy_deconv_tpu_torch train ...``.
+- ``config``, ``cli`` — ``python -m galaxy_deconv_tpu_torch generate|train|test ...``.
 
 Public functions take the JAX layout, (B, H, W) stamps.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"`` (``--device cpu``).

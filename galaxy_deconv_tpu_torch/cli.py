@@ -1,10 +1,16 @@
 """Command-line interface of the port (counterpart of ``galaxy_deconv_tpu/cli.py``).
 
-    python -m galaxy_deconv_tpu_torch.cli train --data_path DIR [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch generate --data_path DIR [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch train --data_path DIR [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--device cpu] ...
 
-``train`` trains the flagship ``Unrolled_ADMM`` (``--remove_SubNet`` for the
-learnt-vector schedule) on a packed dataset, in float32 with TF32 off, and
-checkpoints into ``--model_save_path`` as the reference's ``train.py`` does.
+``generate`` simulates a benchmark dataset (the reference's
+``generate_data.py``); ``train`` trains the flagship ``Unrolled_ADMM``
+(``--remove_SubNet`` for the learnt-vector schedule) on a packed dataset, in
+float32 with TF32 off, and checkpoints into ``--model_save_path`` as the
+reference's ``train.py`` does; ``test`` runs the evaluation sweeps of the
+reference's ``test.py`` and ``test_psf.py`` over a method list.  Each runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -13,17 +19,29 @@ import argparse
 import logging
 
 from galaxy_deconv_tpu_torch.config import add_args, from_namespace
-from galaxy_deconv_tpu_torch.data import GalaxyDataset
+from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset
+from galaxy_deconv_tpu_torch.eval import DEFAULT_PSF_ERRS, run_psf_error_test, run_shear_test, run_time_test
 from galaxy_deconv_tpu_torch.losses import build_loss, get_model_name
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.train import create_train_state, default_optimizer, fit, restore_checkpoint
+from galaxy_deconv_tpu_torch.train.checkpoint import best_epoch, unpack_variables
 from galaxy_deconv_tpu_torch.utils.device import resolve_device
+
+
+def _cmd_generate(ns):
+    if ns.task != "Deconv":
+        raise SystemExit(f"--task {ns.task} is not ported yet (ROADMAP Queue 1: the rest of the zoo)")
+    cfg = SimulationConfig(pupil_n=ns.pupil_n, pupil_pad=2 * ns.pupil_n)
+    root = generate_dataset(ns.data_path, n_train=ns.n_train, n_test=ns.n_test, cfg=cfg, seed=ns.seed,
+                            chunk=ns.chunk, shear_errs=tuple(ns.errs), fwhm_errs=tuple(ns.errs), device=ns.device)
+    print(f"dataset written to {root}")
+    return root
 
 
 def _cmd_train(ns):
     cfg = from_namespace(ns)
     if cfg.model != "Unrolled_ADMM":
-        raise SystemExit(f"--model {cfg.model} is not ported yet (ROADMAP Queue 1 items 10-12)")
+        raise SystemExit(f"--model {cfg.model} is not ported yet (ROADMAP Queue 1: the rest of the zoo)")
     device = resolve_device(cfg.device)
     model_name = get_model_name(cfg.model, cfg.loss, filter=cfg.filter, n_iters=cfg.n_iters, llh=cfg.llh,
                                 remove_subnet=cfg.remove_subnet)
@@ -46,15 +64,82 @@ def _cmd_train(ns):
     return state, hist
 
 
+DEFAULT_METHODS = (
+    "No_Deconv",
+    "FPFS",
+    "Richard-Lucy(10)",
+    "Richard-Lucy(20)",
+    "Richard-Lucy(30)",
+    "Richard-Lucy(50)",
+    "Richard-Lucy(100)",
+)
+
+
+def _cmd_test(ns):
+    cfg = from_namespace(ns)
+    if cfg.n_devices not in (None, 1):
+        raise SystemExit(f"--n_devices {cfg.n_devices}: the port evaluates on one device (the mesh path is "
+                         "ROADMAP Queue 1: the rest, DDP)")
+    resolve_device(cfg.device)
+    methods = ns.methods or DEFAULT_METHODS
+
+    state_dict = None
+    if ns.checkpoint_name:
+        # trained weights (the reference's model_file); 0 = the best-validation epoch of the run's history
+        ep = ns.checkpoint_epoch or best_epoch(cfg.model_save_path, ns.checkpoint_name)
+        state_dict = unpack_variables(restore_checkpoint(cfg.model_save_path, ns.checkpoint_name, ep))
+        logging.info("loaded %s epoch %s", ns.checkpoint_name, ep)
+
+    common = dict(n_gal=cfg.n_gal, batch_size=cfg.eval_batch_size, state_dict=state_dict, device=cfg.device)
+    results = {}
+    for method in methods:
+        if cfg.test == "shear":
+            results[method] = run_shear_test(method, cfg.data_path, cfg.result_path, snrs=tuple(cfg.snrs), **common)
+        elif cfg.test == "time":
+            results[method] = run_time_test(method, cfg.data_path, cfg.result_path, **common)
+        else:
+            kind = cfg.test.removeprefix("psf_")
+            results[method] = run_psf_error_test(method, cfg.data_path, cfg.result_path, errs=ns.errs, kind=kind,
+                                                 **common)
+    return results
+
+
 def main(argv=None):
-    """Run one subcommand; returns what it returns (``train``: the final
-    train state and the history)."""
+    """Run one subcommand; returns what it returns (``generate``: the
+    dataset's root; ``train``: the final train state and the history;
+    ``test``: each method's results)."""
     logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser(prog="galaxy_deconv_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="simulate a benchmark dataset")
+    g.add_argument("--data_path", type=str, required=True)
+    g.add_argument("--n_train", type=int, default=40000)
+    g.add_argument("--n_test", type=int, default=10000)
+    g.add_argument("--pupil_n", type=int, default=512, help="pupil samples across; the FFT grid is twice that")
+    g.add_argument("--chunk", type=int, default=256)
+    g.add_argument("--seed", type=int, default=31415)
+    g.add_argument("--task", type=str, default="Deconv", choices=["Deconv", "Denoise"],
+                   help="Deconv: the benchmark dataset (Denoise is not ported yet)")
+    g.add_argument("--errs", type=float, nargs="*", default=list(DEFAULT_PSF_ERRS),
+                   help="levels of the perturbed-PSF sets, shear and FWHM")
+    g.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    g.set_defaults(fn=_cmd_generate)
+
     t = sub.add_parser("train", help="train a model on a packed dataset")
     add_args(t)
     t.set_defaults(fn=_cmd_train)
+
+    e = sub.add_parser("test", help="evaluation sweeps")
+    add_args(e)
+    e.add_argument("--methods", type=str, nargs="*", default=None,
+                   help="harness method names (default: No_Deconv, FPFS, Richard-Lucy(10-100))")
+    e.add_argument("--checkpoint_name", type=str, default=None,
+                   help="run name under --model_save_path to load weights from")
+    e.add_argument("--checkpoint_epoch", type=int, default=0, help="0 = the best-validation epoch")
+    e.add_argument("--errs", type=float, nargs="*", default=list(DEFAULT_PSF_ERRS))
+    e.set_defaults(fn=_cmd_test)
+
     ns = parser.parse_args(argv)
     return ns.fn(ns)
 

@@ -1,15 +1,17 @@
-"""Run configuration of the ``train`` command (counterpart of
-``galaxy_deconv_tpu/config.py:18-80``, the flags the train path reads).
+"""Run configuration of the ``train`` and ``test`` commands (counterpart of
+``galaxy_deconv_tpu/config.py:18-80``).
 
 The flags keep the reference's vocabulary (--model, --n_iters, --loss,
---train_val_split, --batch_size, --pretrained_epochs, ...); ``--device`` picks
-the device (the card unless ``cpu``) and ``--fft_impl`` takes the port's names.
+--train_val_split, --batch_size, --pretrained_epochs, --test, --snrs, ...);
+``--device`` picks the device (the card unless ``cpu``) and ``--fft_impl``
+takes the port's names.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Optional, Sequence
 
 from galaxy_deconv_tpu_torch.models.unrolled_admm_gaussian import FFT_IMPLS
 
@@ -33,6 +35,13 @@ class RunConfig:
     # data / io
     data_path: str = "datasets/LSST_23.5_deconv_tpu"
     model_save_path: str = "saved_models"
+    result_path: str = "results"
+    # evaluation
+    test: str = "shear"
+    n_gal: int = 10000
+    snrs: Sequence[int] = (20, 40, 60, 80, 100, 150, 200)
+    eval_batch_size: int = 512
+    n_devices: Optional[int] = None  # one device: only None or 1
     seed: int = 42
     device: str = "cuda"
 
@@ -55,6 +64,12 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--pretrained_epochs", type=int, default=d.pretrained_epochs)
     parser.add_argument("--data_path", type=str, default=d.data_path)
     parser.add_argument("--model_save_path", type=str, default=d.model_save_path)
+    parser.add_argument("--result_path", type=str, default=d.result_path)
+    parser.add_argument("--test", type=str, default=d.test, choices=["shear", "time", "psf_shear", "psf_fwhm"])
+    parser.add_argument("--n_gal", type=int, default=d.n_gal)
+    parser.add_argument("--snrs", type=int, nargs="+", default=list(d.snrs))
+    parser.add_argument("--n_devices", type=int, default=None, help="1 (or unset): the port runs on one device")
+    parser.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size)
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--device", type=str, default=d.device, help="cuda (default) or cpu")
     return parser

@@ -1,10 +1,13 @@
-"""Readers of the packed dataset (counterpart of ``galaxy_deconv_tpu/data/dataset.py:38-108``).
+"""The packed dataset: readers and the generator (counterpart of
+``galaxy_deconv_tpu/data/dataset.py:38-210``).
 
-Its own copy, numpy only: the JAX module imports jax and the simulator.
 Layout on disk::
 
     <root>/info.json
     <root>/train/{obs,psf,gt,alpha,snr,gal_g1,gal_g2}.npy      (N, ...) arrays
+    <root>/test/...                                  (random-SNR split)
+    <root>/test/obs_{snr}.npy, gt_{snr}.npy          per fixed-SNR variant
+    <root>/test/psf_shear_err_{e}.npy, psf_fwhm_err_{e}.npy
 
 Batches are dicts of numpy arrays; ``alpha`` is recomputed per batch as the
 mean of each obs stamp, as the reference does per sample.
@@ -19,23 +22,36 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from galaxy_deconv_tpu_torch.data import simulate as sim
+from galaxy_deconv_tpu_torch.utils.device import resolve_device
+
 FIELDS = ("obs", "psf", "gt", "alpha", "snr", "gal_g1", "gal_g2")
 
 
 @dataclasses.dataclass
 class GalaxyDataset:
-    """One split of a packed dataset, read through numpy memmaps."""
+    """One split of a packed dataset, read through numpy memmaps.
+
+    ``obs_variant`` (e.g. ``obs_100``) reads a fixed-SNR variant with its
+    ``gt_100`` (or the split's ``gt`` where that is missing);
+    ``psf_variant`` (e.g. ``psf_shear_err_0.02``) a perturbed-PSF set.
+    """
 
     root: pathlib.Path
     split: str = "train"
+    obs_variant: Optional[str] = None
+    psf_variant: Optional[str] = None
 
     def __post_init__(self):
         self.root = pathlib.Path(self.root)
         with open(self.root / "info.json") as f:
             self.info = json.load(f)
         d = self.root / self.split
-        self.obs, self.psf, self.gt, self.gal_g1, self.gal_g2 = (
-            np.load(d / f"{name}.npy", mmap_mode="r") for name in ("obs", "psf", "gt", "gal_g1", "gal_g2"))
+        self.obs = np.load(d / f"{self.obs_variant or 'obs'}.npy", mmap_mode="r")
+        self.psf = np.load(d / f"{self.psf_variant or 'psf'}.npy", mmap_mode="r")
+        gt_path = d / f"{'gt' if self.obs_variant is None else self.obs_variant.replace('obs', 'gt')}.npy"
+        self.gt = np.load(gt_path if gt_path.exists() else d / "gt.npy", mmap_mode="r")
+        self.gal_g1, self.gal_g2 = (np.load(d / f"{name}.npy", mmap_mode="r") for name in ("gal_g1", "gal_g2"))
 
     def __len__(self) -> int:
         return self.obs.shape[0]
@@ -75,3 +91,108 @@ def train_val_indices(n: int, train_val_split: float = 0.8, seed: int = 0):
     np.random.default_rng(seed).shuffle(idx)
     n_train = int(train_val_split * n)
     return idx[:n_train], idx[n_train:]
+
+
+# ---------------------------------------------------------------------------
+# Generation
+# ---------------------------------------------------------------------------
+
+
+def _append(store: dict, out: dict):
+    for k in FIELDS:
+        store.setdefault(k, []).append(out[k].float().cpu().numpy())
+
+
+def _write(d: pathlib.Path, store: dict):
+    d.mkdir(parents=True, exist_ok=True)
+    for k, chunks in store.items():
+        np.save(d / f"{k}.npy", np.concatenate(chunks, axis=0))
+
+
+def _chunk_seeds(seq: np.random.SeedSequence, total: int, chunk: int) -> list[tuple[int, int]]:
+    """(seed, size) of each chunk of ``total`` samples, the seeds from ``seq``'s children."""
+    sizes = [min(chunk, total - s) for s in range(0, total, chunk)]
+    return [(int(c.generate_state(1, np.uint64)[0]), n) for c, n in zip(seq.spawn(len(sizes)), sizes)]
+
+
+def generate_dataset(
+    root,
+    n_train: int = 2000,
+    n_test: int = 500,
+    cfg: sim.SimulationConfig = sim.SimulationConfig(),
+    seed: int = 31415,
+    chunk: int = 128,
+    snrs=(20, 40, 60, 80, 100, 150, 200),
+    shear_errs=(0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2),
+    fwhm_errs=(0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2),
+    verbose: bool = True,
+    device="cuda",
+) -> pathlib.Path:
+    """Simulate on ``device`` and write a benchmark dataset: the train split,
+    the random-SNR test split, a fixed-SNR test variant per ``snrs`` and the
+    perturbed-PSF sets (the reference generate_data.py's layout).
+
+    ``numpy.random.SeedSequence(seed)`` gives the train and the test split a
+    child each, and those give one seed per chunk.  Every test chunk's seed
+    renders its random-SNR stamps, each fixed-SNR variant (same scenes and
+    noise, the flux scaled) and each perturbed-PSF set (same scenes, one sign
+    draw), so the variants hold the same galaxies; nothing of the train split
+    comes from it.  The same seed on the same kind of device writes the same
+    files (see :mod:`galaxy_deconv_tpu_torch.data.simulate` on the streams).
+    """
+    dev = resolve_device(device)
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    train_seq, test_seq = np.random.SeedSequence(seed).spawn(2)
+
+    store: dict = {}
+    done = 0
+    for k, n in _chunk_seeds(train_seq, n_train, chunk):
+        _append(store, sim.simulate_batch(k, n, cfg, dev))
+        done += n
+        if verbose:
+            print(f"\rtrain {done}/{n_train}", end="", flush=True)
+    _write(root / "train", store)
+    if verbose:
+        print()
+
+    test_keys = _chunk_seeds(test_seq, n_test, chunk)
+    store = {}
+    for k, n in test_keys:
+        _append(store, sim.simulate_batch(k, n, cfg, dev))
+    _write(root / "test", store)
+
+    for snr in snrs:
+        store = {}
+        for k, n in test_keys:
+            _append(store, sim.simulate_batch_at_snr(k, n, float(snr), cfg, dev))
+        d = root / "test"
+        np.save(d / f"obs_{snr}.npy", np.concatenate(store["obs"], axis=0))
+        np.save(d / f"gt_{snr}.npy", np.concatenate(store["gt"], axis=0))
+        if verbose:
+            print(f"test snr={snr} done")
+
+    for kind, errs in (("shear", shear_errs), ("fwhm", fwhm_errs)):
+        for e in errs:
+            chunks = [sim.simulate_perturbed_psfs(k, n, cfg, device=dev, **{f"{kind}_err": float(e)}).cpu().numpy()
+                      for k, n in test_keys]
+            np.save(root / "test" / f"psf_{kind}_err_{e}.npy", np.concatenate(chunks, axis=0))
+    if verbose:
+        print("perturbed psf sets done")
+
+    info = dict(
+        n_train=n_train,
+        n_test=n_test,
+        fov_pixels=cfg.fov_pixels,
+        pixel_scale=cfg.pixel_scale,
+        upsample=cfg.upsample,
+        seed=seed,
+        snrs=list(snrs),
+        shear_errs=list(shear_errs),
+        fwhm_errs=list(fwhm_errs),
+        noise_sigma=sim.noise_sigma(cfg.pixel_scale),
+        generator="galaxy_deconv_tpu_torch.data.simulate",
+    )
+    with open(root / "info.json", "w") as f:
+        json.dump(info, f, indent=1)
+    return root

@@ -40,5 +40,5 @@ def build_loss(loss: str, **kwargs) -> Callable:
     if loss == "MSE":
         return mse_loss
     if loss in NOT_PORTED:
-        raise ValueError(f"loss {loss!r} is not ported yet (ROADMAP Queue 1 item 13)")
+        raise ValueError(f"loss {loss!r} is not ported yet (ROADMAP Queue 1: the other losses)")
     raise ValueError(f"unknown loss {loss!r}")

@@ -1,7 +1,7 @@
 """Fourier-domain helpers on the trailing two axes of (..., H, W) tensors.
 
-Counterpart of ``galaxy_deconv_tpu/ops/fourier.py:44-95`` (the subset the
-flagship path uses).  Every image on the path is real, so spectra are the
+Counterpart of ``galaxy_deconv_tpu/ops/fourier.py:44-130`` (the subset the
+flagship and the baseline solvers use).  Every image on the path is real, so spectra are the
 ``rfft2`` half-spectrum, exactly as in the JAX package.
 """
 
@@ -55,3 +55,30 @@ def pad_to_size_centered(ker: torch.Tensor, shape: tuple[int, int]) -> torch.Ten
     top = H // 2 - kh // 2
     left = W // 2 - kw // 2
     return F.pad(ker, (left, W - kw - left, top, H - kh - top))
+
+
+def otf_from_centered_psf(psf: torch.Tensor, shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """rfft-domain OTF of a *centred* PSF, optionally embedded into ``shape``.
+
+    Rolls the centred PSF so its centre pixel sits at the origin (the
+    circular-convolution convention), then takes ``rfft2``.  Returns
+    complex64 with trailing shape ``(H, W//2+1)``.
+    """
+    if shape is not None and (psf.shape[-2], psf.shape[-1]) != tuple(shape):
+        psf = pad_to_size_centered(psf, shape)
+    return rfft2(ifftshift2(psf))
+
+
+def psf_to_otf(psf: torch.Tensor, shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """Alias for :func:`otf_from_centered_psf` (the reference's name)."""
+    return otf_from_centered_psf(psf, shape)
+
+
+def conv_fft(otf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Circular convolution of a real image batch with an rfft-domain OTF.
+
+    ``otf`` has trailing shape (H, W//2+1) (from :func:`psf_to_otf`); ``x``
+    has trailing shape (H, W).  Broadcasts over leading axes.
+    """
+    H, W = x.shape[-2], x.shape[-1]
+    return irfft2(rfft2(x) * otf, (H, W))

@@ -43,17 +43,17 @@ CLASSES = (  # first match wins, on the lower-cased kernel name
 )
 
 
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, classes=CLASSES) -> str:
     low = name.lower()
-    for label, keys in CLASSES:
+    for label, keys in classes:
         if any(k in low for k in keys):
             return label
     return "elementwise / other"
 
 
-def profile(label: str, fn, calls: int, B: int) -> None:
+def profile(label: str, fn, calls: int, B: int, classes=CLASSES) -> None:
     """Run ``fn()`` ``calls`` times under the profiler (after the caller's
-    warm-up) and print the breakdown per call."""
+    warm-up) and print the breakdown per call, kernels grouped by ``classes``."""
     torch.cuda.synchronize()
     with profile_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -67,7 +67,7 @@ def profile(label: str, fn, calls: int, B: int) -> None:
         raise RuntimeError("the profiler recorded no device time")
     by_class: dict[str, float] = {}
     for e in kernels:
-        cls = kernel_class(e.key)
+        cls = kernel_class(e.key, classes)
         by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total
     print(f"[{label}] B={B}, {calls} calls: wall {wall_s / calls * 1e3:.3f} ms/call "
           f"({calls * B / wall_s:.1f} gal/s under the profiler); device busy {busy_us / calls / 1e3:.3f} ms/call, "

@@ -1,10 +1,11 @@
 """Rules of the PyTorch port: it runs where JAX does not exist.
 
 Every module of galaxy_deconv_tpu_torch and chip_smoke.py imports with jax,
-flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline and
-training phases (the latter through ``cli train``) and the package's
-``python -m`` entry point run on the CPU (at a tiny size, through the plain
-x-update solve and its plain backward) with them blocked.  chip_smoke.py exits non-zero and prints no result without a card,
+flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline,
+training (through ``cli train``), generate and test phases and the package's
+``python -m`` entry point (``generate`` then ``test``) run on the CPU (at a
+tiny size, through the plain x-update solve and its plain backward) with them
+blocked.  chip_smoke.py exits non-zero and prints no result without a card,
 and when it stands alone in a directory."""
 
 import ast
@@ -111,6 +112,49 @@ print("train phase ok")
     assert res.returncode == 0, res.stderr
     assert "train phase ok" in res.stdout
     assert "checkpoint" in res.stdout and "bit-exact" in res.stdout
+
+
+def test_chip_smoke_generate_and_test_phases_run_on_cpu_without_jax():
+    body = """
+import importlib.util, pathlib, tempfile, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    root = pathlib.Path(tmp) / "data"
+    gen = cs.phase_generate(cpu, root, n_train=2, n_test=3, pupil_n=16, chunk=4, errs=(0.05,), n_check=2)
+    res = cs.phase_test(cpu, root, pathlib.Path(tmp) / "results", "cpu",
+                        methods=("No_Deconv", "FPFS", "Wiener", "Richard-Lucy(30)", "Unrolled_ADMM_Gaussian(1)"),
+                        flagship="Unrolled_ADMM_Gaussian(1)", n_gal=3, batch=2, snrs=(20,), errs=(0.05,), n_check=2)
+assert max(gen["rel"].values()) == 0 and gen["n_test"] == 3
+assert set(res["launches"].values()) == {0}  # CPU tensors take the plain solve
+print("eval phases ok")
+"""
+    res = run_blocked(body, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "eval phases ok" in res.stdout and "gal/s" in res.stdout
+
+
+def test_cli_generate_then_test_run_on_cpu_without_jax(tmp_path):
+    body = f"""
+import json, pathlib, runpy, sys
+root, res = pathlib.Path({str(tmp_path / "data")!r}), pathlib.Path({str(tmp_path / "results")!r})
+
+def run(*argv):
+    sys.argv = ["galaxy_deconv_tpu_torch", *argv]
+    runpy.run_module("galaxy_deconv_tpu_torch", run_name="__main__", alter_sys=True)
+
+run("generate", "--data_path", str(root), "--n_train", "2", "--n_test", "3", "--pupil_n", "16", "--errs", "0.02",
+    "--device", "cpu")
+run("test", "--data_path", str(root), "--result_path", str(res), "--n_gal", "3", "--eval_batch_size", "2",
+    "--snrs", "20", "--methods", "Wiener", "Unrolled_ADMM_Gaussian(1)", "--device", "cpu")
+for m in ("Wiener", "Unrolled_ADMM_Gaussian(1)"):
+    assert len(json.loads((res / m / "results.json").read_text())["20"]["rec_shear"]) == 3
+print("cli ok")
+"""
+    res = run_blocked(body, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "cli ok" in res.stdout and "dataset written to" in res.stdout
 
 
 def test_package_entry_point_runs_without_jax():

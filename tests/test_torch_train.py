@@ -148,7 +148,7 @@ def test_build_loss():
     assert build_loss("MultiScale", norm="L2").norm == "L2"
     assert build_loss("MSE") is mse_loss
     for name in ("Shape", "BestEllipse", "MomentBasedLoss"):
-        with pytest.raises(ValueError, match="item 13"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 1: the other losses"):
             build_loss(name)
     with pytest.raises(ValueError, match="unknown loss"):
         build_loss("Huber")
