@@ -49,7 +49,20 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              launches (8 per batch, none for the baselines); then Wiener,
              Richard-Lucy(30) and the flagship's reconstructions of 64 test
              galaxies and the baselines' rec_shear at SNR 20 against the
-             CPU's.
+             CPU's;
+9. zoo       the paper's learned baselines at full width with seed-0
+             weights, on phase 7's tree: (a) Unrolled_ADMM(8) (Poisson,
+             ResUNet(64..512) + SubNet(16)), Tikhonet_Laplacian, ShapeNet,
+             ADMMNet(8), ADMMNet_fixed(8) and the ResUNet denoiser, fp32
+             through ``make_apply_fn``, their reconstructions of 64 test
+             galaxies on the card against the CPU's; (b) ``cli test --test
+             shear`` for each at B = 512 over the 1,024 test galaxies: gal/s,
+             the results' schema, no x_update_solve launch; (c) ``cli generate
+             --task Denoise`` on the card, then ``cli train --model ResUNet``
+             for one epoch on that tree; (d) ``cli train --model Tikhonet`` for
+             one epoch on phase 6's stamps; for (c) and (d) finite losses, the
+             checkpoint restoring bit for bit, and ``--model ShapeNet``
+             refused naming the Shape loss.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -144,6 +157,9 @@ SNRS = (20, 40, 60, 80, 100, 150, 200)  # cli generate's fixed-SNR variants
 PSF_ERRS = (0.01, 0.05, 0.1)
 EVAL_BATCH = 512  # config.py's eval_batch_size
 EVAL_METHODS = (*cli.DEFAULT_METHODS, "Wiener", "Unrolled_ADMM_Gaussian(8)")
+# The zoo's seed-0 reconstructions, card against CPU, max |d| / max |CPU|: the
+# BASELINE_REC_REL_TOL above, fixed before the first reading.
+ZOO_METHODS = ("Unrolled_ADMM(8)", "Tikhonet_Laplacian", "ShapeNet", "ADMMNet(8)", "ADMMNet_fixed(8)", "ResUNet")
 
 
 def bench_inputs(B: int, seed: int = 0):
@@ -549,6 +565,19 @@ def grad_errors(loss, grads, ref_loss, ref_grads) -> tuple[float, float, str, fl
     return abs(loss - ref_loss) / abs(ref_loss), rel[worst], worst, zero
 
 
+def _check_checkpoint(state, save: pathlib.Path, name: str) -> int:
+    """The epoch-1 checkpoint of run ``name`` restores ``state`` bit for bit;
+    returns the number of tensors compared."""
+    restored, trained = restore_checkpoint(save, name, 1), state_payload(state)
+    pairs = [(trained["model"][k], restored["model"][k]) for k in trained["model"]]
+    pairs += [(trained["opt_state"][m][k], restored["opt_state"][m][k]) for m in ("mu", "nu")
+              for k in trained["opt_state"][m]]
+    if not (all(torch.equal(a.cpu(), b) for a, b in pairs) and restored["step"] == state.step
+            and restored["opt_state"]["count"] == trained["opt_state"]["count"]):
+        raise AssertionError(f"the checkpoint of {name} does not restore the trained state bit for bit")
+    return len(pairs)
+
+
 def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP["n_iters"],
                      features=FLAGSHIP["features"], n_check=N_CPU_CHECK, n_steps=20, n_warm=5) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -575,17 +604,8 @@ def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP[
         if (fwd, bwd) != want:
             raise AssertionError(f"solve launches forward {fwd}, backward {bwd}; expected {want}: "
                                  f"{n_iters} + {n_iters} per train step, {n_iters} per val forward")
-        restored = restore_checkpoint(save, get_model_name("Unrolled_ADMM", "MultiScale", n_iters=n_iters), 1)
-        trained = state_payload(state)
-        pairs = [(trained["model"][k], restored["model"][k]) for k in trained["model"]]
-        pairs += [(trained["opt_state"][m][k], restored["opt_state"][m][k]) for m in ("mu", "nu")
-                  for k in trained["opt_state"][m]]
-        exact = all(torch.equal(a.cpu(), b) for a, b in pairs) and restored["step"] == state.step \
-            and restored["opt_state"]["count"] == trained["opt_state"]["count"]
-        print(f"train fp32 (a): checkpoint {save.name}/..._1epochs restores {len(pairs)} tensors, step and count: "
-              f"{'bit-exact' if exact else 'DIFFERENT'}")
-        if not exact:
-            raise AssertionError("the checkpoint does not restore the trained state bit for bit")
+        n = _check_checkpoint(state, save, get_model_name("Unrolled_ADMM", "MultiScale", n_iters=n_iters))
+        print(f"train fp32 (a): checkpoint {save.name}/..._1epochs restores {n} tensors, step and count: bit-exact")
 
         # (b) one step on the card against the CPU, and the TF32 control
         batch = ds.batch(np.arange(n_check))
@@ -769,6 +789,104 @@ def phase_test(device, root: pathlib.Path, res: pathlib.Path, card: str, methods
     return {"rates": rates, "launches": launches, "rec_rel": rec_rel, "shear_err": shear_err}
 
 
+def phase_zoo(device, root: pathlib.Path, work: pathlib.Path, card: str, methods=ZOO_METHODS, n_gal=1024,
+              batch=EVAL_BATCH, snrs=SNRS, n_check=64, n_denoise=N_STAMPS, train_batch=TRAIN_BATCH,
+              model_kwargs=None) -> dict:
+    """The zoo on ``device``: (a) seed-0 reconstructions against the CPU's, (b)
+    ``cli test --test shear`` over ``root``, (c) the Denoise tree and one epoch
+    of ``cli train --model ResUNet`` on it, (d) one epoch of ``cli train
+    --model Tikhonet`` on :func:`write_dataset`'s stamps.  ``model_kwargs``
+    (per method) narrows the models for a run on the CPU; the cli runs take
+    the full widths."""
+    model_kwargs = model_kwargs or {}
+    # (a) card against CPU
+    b = GalaxyDataset(root, "test").batch(np.arange(n_check))
+    rec_rel = {}
+    for method in methods:
+        kw = model_kwargs.get(method, {})
+        got, want = (harness.make_apply_fn(method, device=d, **kw)(*(torch.as_tensor(b[k], device=d)
+                                                                     for k in ("obs", "psf", "alpha"))).cpu()
+                     for d in (device, torch.device("cpu")))
+        if got.shape != (n_check, 48, 48) or not torch.isfinite(got).all():
+            raise AssertionError(f"zoo {method}: reconstruction {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        rec_rel[method] = float((got - want).abs().max() / want.abs().max())
+    print(f"zoo (a) ({device.type}) vs CPU, seed-0 weights, fp32, {n_check} test galaxies: reconstructions max |d| / "
+          f"max |CPU| " + ", ".join(f"{k} {v:.3e}" for k, v in rec_rel.items()) + f" (tol {BASELINE_REC_REL_TOL})")
+    if max(rec_rel.values()) > BASELINE_REC_REL_TOL:
+        raise AssertionError("the device's zoo reconstructions disagree with the CPU's")
+
+    # (b) the shear sweep of each method through the command line
+    rates = {}
+    res = work / "results"
+    for method in methods:
+        xu.x_update_solve.launches = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        cli.main(["test", "--data_path", str(root), "--result_path", str(res), "--n_gal", str(n_gal),
+                  "--eval_batch_size", str(batch), "--device", device.type, "--snrs", *map(str, snrs), "--test",
+                  "shear", "--methods", method])
+        _sync(device)
+        rates[method] = len(snrs) * n_gal / (time.perf_counter() - t0)
+        r = json.loads((res / method / "results.json").read_text())
+        if set(r) != {*map(str, snrs), "meta"} or r["meta"]["n_gal"] != n_gal:
+            raise AssertionError(f"zoo {method}/results.json keys {sorted(r)}")
+        for snr in map(str, snrs):
+            if set(r[snr]) != {"rec_shear", "data_root"} or np.shape(r[snr]["rec_shear"]) != (n_gal, 3) \
+                    or not np.isfinite(r[snr]["rec_shear"]).all():
+                raise AssertionError(f"zoo {method} snr {snr}: keys {sorted(r[snr])}, rec_shear "
+                                     f"{np.shape(r[snr]['rec_shear'])}, finite {np.isfinite(r[snr]['rec_shear']).all()}")
+        if xu.x_update_solve.launches:
+            raise AssertionError(f"zoo {method}: x_update_solve launched {xu.x_update_solve.launches} times")
+    print(f"zoo (b) ({device.type}, {card}): cli test --test shear at B={batch} over {n_gal} test galaxies x "
+          f"{len(snrs)} SNR variants, gal/s (host clock around each command, model build and uploads included), "
+          "x_update_solve launches 0: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+
+    # (c) the Denoise task: generate, then one epoch of the ResUNet denoiser; (d) one epoch of Tikhonet
+    dn = work / "denoise"
+    _sync(device)
+    t0 = time.perf_counter()
+    cli.main(["generate", "--task", "Denoise", "--data_path", str(dn), "--n_train", str(n_denoise), "--n_test",
+              str(train_batch), "--seed", "0", "--device", device.type])
+    _sync(device)
+    gen_s = time.perf_counter() - t0
+    info = json.loads((dn / "info.json").read_text())
+    obs = np.load(dn / "train" / "obs.npy")
+    if info["task"] != "Denoise" or obs.shape != (n_denoise, 48, 48) or np.load(dn / "train" / "psf.npy").any():
+        raise AssertionError(f"Denoise tree: task {info['task']}, obs {obs.shape}")
+    stamps = write_dataset(work / "stamps", n_denoise)
+    train = {}
+    for model, data, name in (("ResUNet", dn, "ResUNet_MultiScale"),
+                              ("Tikhonet", stamps, "Tikhonet_Laplacian_MultiScale")):
+        save = work / "models"
+        xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+        state, hist = cli.main(["train", "--model", model, "--data_path", str(data), "--model_save_path", str(save),
+                                "--n_epochs", "1", "--batch_size", str(train_batch), "--seed", "0",
+                                "--device", device.type])
+        _sync(device)
+        losses = hist["train_loss"] + hist["val_loss"]
+        if not np.isfinite(losses).all() or state.step != int(0.9 * n_denoise) // train_batch:
+            raise AssertionError(f"cli train --model {model}: {state.step} steps, losses {losses}")
+        if xu.x_update_solve.launches or xu.x_update_solve_backward.launches:
+            raise AssertionError(f"cli train --model {model} launched the solve kernels")
+        n = _check_checkpoint(state, save, name)
+        train[model] = {"steps": state.step, "epoch_s": hist["epoch_time"][0]}
+        print(f"zoo ({'c' if model == 'ResUNet' else 'd'}) ({device.type}, {card}): cli train --model {model}, one "
+              f"epoch of {state.step} steps at B={train_batch} on {'the Denoise tree' if model == 'ResUNet' else 'the stamps'}"
+              f": train_loss {hist['train_loss'][0]:.6g}, val_loss {hist['val_loss'][0]:.6g}, epoch "
+              f"{hist['epoch_time'][0]:.2f} s ({state.step * train_batch / hist['epoch_time'][0]:.1f} gal/s with "
+              f"validation); checkpoint restores {n} tensors bit-exact; no solve launches")
+    try:
+        cli.main(["train", "--model", "ShapeNet", "--data_path", str(stamps), "--device", device.type])
+    except SystemExit as e:
+        if "Shape loss" not in str(e):
+            raise AssertionError(f"cli train --model ShapeNet exited with {e}") from None
+        print(f"zoo: cli train --model ShapeNet refused: {e}")
+    else:
+        raise AssertionError("cli train --model ShapeNet ran; the Shape loss is not ported")
+    print(f"zoo (c): cli generate --task Denoise, {n_denoise} + {train_batch} galaxies: {gen_s:.2f} s")
+    return {"rec_rel": rec_rel, "rates": rates, "train": train, "denoise_s": gen_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -795,8 +913,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         gen = phase_generate(device, pathlib.Path(tmp) / "data")
         test = phase_test(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results", card)
+        zoo = phase_zoo(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "zoo", card)
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
-          f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s")
+          f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
+          "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
     # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training and the flagship's eval sweeps
     kernel["launches"] = fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
     kernel_bwd["launches"] = train["backward_launches"]

@@ -1,16 +1,17 @@
 """Command-line interface of the port (counterpart of ``galaxy_deconv_tpu/cli.py``).
 
-    python -m galaxy_deconv_tpu_torch generate --data_path DIR [--device cpu] ...
-    python -m galaxy_deconv_tpu_torch train --data_path DIR [--device cpu] ...
-    python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch generate --data_path DIR [--task Denoise] [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch train --data_path DIR [--model Tikhonet|ResUNet] [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--methods ...] [--device cpu] ...
 
-``generate`` simulates a benchmark dataset (the reference's
-``generate_data.py``); ``train`` trains the flagship ``Unrolled_ADMM``
-(``--remove_SubNet`` for the learnt-vector schedule) on a packed dataset, in
-float32 with TF32 off, and checkpoints into ``--model_save_path`` as the
-reference's ``train.py`` does; ``test`` runs the evaluation sweeps of the
-reference's ``test.py`` and ``test_psf.py`` over a method list.  Each runs on
-the card unless ``--device cpu``.
+``generate`` simulates a benchmark dataset, or with ``--task Denoise`` the
+denoising task's (the reference's ``generate_data.py``); ``train`` trains the
+flagship ``Unrolled_ADMM`` (``--remove_SubNet`` for the learnt-vector
+schedule), a Tikhonet (``--filter``) or, on a Denoise tree, the standalone
+ResUNet, in float32 with TF32 off, and checkpoints into ``--model_save_path``
+as the reference's ``train.py`` does; ``test`` runs the evaluation sweeps of
+the reference's ``test.py`` and ``test_psf.py`` over a method list of any
+registry names.  Each runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,36 +20,44 @@ import argparse
 import logging
 
 from galaxy_deconv_tpu_torch.config import add_args, from_namespace
-from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset
+from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset, generate_dataset_denoise
 from galaxy_deconv_tpu_torch.eval import DEFAULT_PSF_ERRS, run_psf_error_test, run_shear_test, run_time_test
 from galaxy_deconv_tpu_torch.losses import build_loss, get_model_name
-from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
+from galaxy_deconv_tpu_torch.models import ResUNetDenoiser, Tikhonet, UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.train import create_train_state, default_optimizer, fit, restore_checkpoint
 from galaxy_deconv_tpu_torch.train.checkpoint import best_epoch, unpack_variables
 from galaxy_deconv_tpu_torch.utils.device import resolve_device
 
 
 def _cmd_generate(ns):
-    if ns.task != "Deconv":
-        raise SystemExit(f"--task {ns.task} is not ported yet (ROADMAP Queue 1: the rest of the zoo)")
     cfg = SimulationConfig(pupil_n=ns.pupil_n, pupil_pad=2 * ns.pupil_n)
-    root = generate_dataset(ns.data_path, n_train=ns.n_train, n_test=ns.n_test, cfg=cfg, seed=ns.seed,
-                            chunk=ns.chunk, shear_errs=tuple(ns.errs), fwhm_errs=tuple(ns.errs), device=ns.device)
+    common = dict(n_train=ns.n_train, n_test=ns.n_test, cfg=cfg, seed=ns.seed, chunk=ns.chunk, device=ns.device)
+    if ns.task == "Denoise":
+        root = generate_dataset_denoise(ns.data_path, **common)
+    else:
+        root = generate_dataset(ns.data_path, shear_errs=tuple(ns.errs), fwhm_errs=tuple(ns.errs), **common)
     print(f"dataset written to {root}")
     return root
 
 
 def _cmd_train(ns):
     cfg = from_namespace(ns)
-    if cfg.model != "Unrolled_ADMM":
-        raise SystemExit(f"--model {cfg.model} is not ported yet (ROADMAP Queue 1: the rest of the zoo)")
+    if cfg.model == "ShapeNet":
+        raise SystemExit("--model ShapeNet trains with the Shape loss, which is not ported yet "
+                         "(ROADMAP Queue 1: the other losses)")
     device = resolve_device(cfg.device)
     model_name = get_model_name(cfg.model, cfg.loss, filter=cfg.filter, n_iters=cfg.n_iters, llh=cfg.llh,
                                 remove_subnet=cfg.remove_subnet)
     logging.info("training %s on %s (%s)", model_name, cfg.data_path, device)
 
-    # train.py:41 -- the Gaussian flagship whatever --llh says
-    model = UnrolledADMMGaussian(n_iters=cfg.n_iters, subnet=not cfg.remove_subnet, fft_impl=cfg.fft_impl).to(device)
+    if cfg.model == "Unrolled_ADMM":
+        # train.py:41 -- the Gaussian flagship whatever --llh says
+        model = UnrolledADMMGaussian(n_iters=cfg.n_iters, subnet=not cfg.remove_subnet, fft_impl=cfg.fft_impl)
+    elif cfg.model == "Tikhonet":
+        model = Tikhonet(filter=cfg.filter)
+    else:  # ResUNet, on a Denoise tree
+        model = ResUNetDenoiser()
+    model = model.to(device)
     loss_fn = build_loss(cfg.loss)
     ds = GalaxyDataset(cfg.data_path, "train")
     state, optimizer = create_train_state(model, cfg.seed, default_optimizer(cfg.lr))
@@ -120,9 +129,9 @@ def main(argv=None):
     g.add_argument("--chunk", type=int, default=256)
     g.add_argument("--seed", type=int, default=31415)
     g.add_argument("--task", type=str, default="Deconv", choices=["Deconv", "Denoise"],
-                   help="Deconv: the benchmark dataset (Denoise is not ported yet)")
+                   help="Deconv: the benchmark dataset; Denoise: obs = gt + noise pairs, no PSF")
     g.add_argument("--errs", type=float, nargs="*", default=list(DEFAULT_PSF_ERRS),
-                   help="levels of the perturbed-PSF sets, shear and FWHM")
+                   help="levels of the perturbed-PSF sets, shear and FWHM (Deconv)")
     g.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=_cmd_generate)
 

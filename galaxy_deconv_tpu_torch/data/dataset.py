@@ -1,5 +1,5 @@
-"""The packed dataset: readers and the generator (counterpart of
-``galaxy_deconv_tpu/data/dataset.py:38-210``).
+"""The packed dataset: readers, the generators and the reference-format
+conversion (counterpart of ``galaxy_deconv_tpu/data/dataset.py``).
 
 Layout on disk::
 
@@ -21,6 +21,7 @@ import pathlib
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from galaxy_deconv_tpu_torch.data import simulate as sim
 from galaxy_deconv_tpu_torch.utils.device import resolve_device
@@ -196,3 +197,79 @@ def generate_dataset(
     with open(root / "info.json", "w") as f:
         json.dump(info, f, indent=1)
     return root
+
+
+def generate_dataset_denoise(
+    root,
+    n_train: int = 2000,
+    n_test: int = 500,
+    cfg: sim.SimulationConfig = sim.SimulationConfig(),
+    seed: int = 31415,
+    chunk: int = 128,
+    verbose: bool = True,
+    device="cuda",
+) -> pathlib.Path:
+    """Simulate on ``device`` and write a denoising-task dataset (the
+    reference's ``generate_data.py --task Denoise``): train and test splits
+    of obs = gt + CCD noise, no PSF (``psf`` all zeros), the training set of
+    the standalone ResUNet that ADMMNet runs frozen.  Seeds as in
+    :func:`generate_dataset`: ``numpy.random.SeedSequence(seed)`` gives each
+    split a child, and those give one seed per chunk."""
+    dev = resolve_device(device)
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for split, n_split, seq in zip(("train", "test"), (n_train, n_test), np.random.SeedSequence(seed).spawn(2)):
+        store: dict = {}
+        done = 0
+        for k, n in _chunk_seeds(seq, n_split, chunk):
+            _append(store, sim.simulate_batch_denoise(k, n, cfg, dev))
+            done += n
+            if verbose:
+                print(f"\r{split} {done}/{n_split}", end="", flush=True)
+        _write(root / split, store)
+        if verbose:
+            print()
+
+    info = dict(
+        n_train=n_train,
+        n_test=n_test,
+        fov_pixels=cfg.fov_pixels,
+        pixel_scale=cfg.pixel_scale,
+        upsample=cfg.upsample,
+        seed=seed,
+        task="Denoise",
+        noise_sigma=sim.noise_sigma(cfg.pixel_scale),
+        generator="galaxy_deconv_tpu_torch.data.simulate",
+    )
+    with open(root / "info.json", "w") as f:
+        json.dump(info, f, indent=1)
+    return root
+
+
+def load_reference_pth_dataset(data_path, out_root, train: bool = True, limit: Optional[int] = None) -> pathlib.Path:
+    """Convert the reference's per-sample ``.pth`` layout
+    (``{obs,psf,gt}/{k}_{i}.pth`` and an ``info.json`` with ``n_train`` and
+    ``n_test``, the test samples numbered after the train ones) into packed
+    arrays under ``out_root``; alpha is each obs stamp's mean, and snr and
+    the true shear, which that layout does not hold, are zeros."""
+    data_path, out_root = pathlib.Path(data_path), pathlib.Path(out_root)
+    with open(data_path / "info.json") as f:
+        info = json.load(f)
+    n_train, n_test = info["n_train"], info["n_test"]
+    start, count = (0, n_train) if train else (n_train, n_test)
+    if limit:
+        count = min(count, limit)
+
+    fields = {k: np.stack([torch.load(data_path / k / f"{k}_{i}.pth", map_location="cpu", weights_only=True).numpy()
+                           for i in range(start, start + count)]).astype(np.float32)
+              for k in ("obs", "psf", "gt")}
+    d = out_root / ("train" if train else "test")
+    d.mkdir(parents=True, exist_ok=True)
+    for k, v in fields.items():
+        np.save(d / f"{k}.npy", v)
+    np.save(d / "alpha.npy", fields["obs"].mean(axis=(-2, -1)).astype(np.float32))
+    for k in ("snr", "gal_g1", "gal_g2"):
+        np.save(d / f"{k}.npy", np.zeros(count, np.float32))
+    with open(out_root / "info.json", "w") as f:
+        json.dump({**info, "converted_from": str(data_path)}, f)
+    return out_root

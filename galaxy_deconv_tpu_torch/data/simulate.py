@@ -15,7 +15,9 @@ JAX package's own draws:
 
 1. draw: :func:`sample_params`, :func:`draw_noise`, :func:`draw_signs`, each
    from its own ``torch.Generator`` of :func:`chunk_generators`;
-2. render from the draws: :func:`render_batch`, :func:`render_perturbed_psfs`.
+2. render from the draws: :func:`render_batch`, :func:`render_perturbed_psfs`,
+   :func:`render_batch_denoise` (the denoising task, its SNR from
+   :func:`draw_denoise_snr`).
 
 Random streams.  ``torch``'s generators cannot reproduce ``jax.random``'s
 streams, so a dataset made here from ``--seed`` is not the JAX package's
@@ -494,6 +496,14 @@ def draw_noise(gen: torch.Generator, n: int, cfg: SimulationConfig) -> torch.Ten
     return noise_sigma(cfg.pixel_scale) * torch.randn(shape, generator=gen, device=gen.device)
 
 
+def draw_denoise_snr(gen: torch.Generator, n: int) -> torch.Tensor:
+    """The denoising task's SNRs, p(snr) ∝ snr^-0.44 on [18, 320] (the
+    reference's denoise generator)."""
+    p, lo, hi = 0.44, 18.0, 320.0
+    t = torch.rand((n,), generator=gen, device=gen.device)
+    return (t * (hi ** (1 - p) - lo ** (1 - p)) + lo ** (1 - p)) ** (1.0 / (1 - p))
+
+
 def draw_signs(gen: torch.Generator, n: int) -> torch.Tensor:
     """(n, 3) signs +-1 of the PSF errors: g1, g2, FWHM."""
     return torch.where(torch.rand((n, 3), generator=gen, device=gen.device) > 0.5, 1.0, -1.0)
@@ -545,6 +555,20 @@ def render_batch(params: dict, noise: torch.Tensor, cfg: SimulationConfig) -> di
                 alpha=alpha, snr=params["snr"], gal_g1=g1, gal_g2=g2)
 
 
+def render_batch_denoise(params: dict, snr: torch.Tensor, noise: torch.Tensor, cfg: SimulationConfig) -> dict:
+    """Render a denoising-task batch from its draws (reference
+    generate_data.py:337-452): no PSF, obs = gt + noise with gt the galaxy at
+    fov resolution scaled to ``snr``; ``psf`` is all zeros, ``params["snr"]``
+    unused."""
+    sigma = noise_sigma(cfg.pixel_scale)
+    gal_down = average_downsample(render_galaxy(params, cfg), cfg.upsample)
+    alpha = snr * sigma / torch.sqrt((gal_down**2).sum(dim=(-2, -1)))
+    gt = alpha[:, None, None] * gal_down
+    obs = gt + noise
+    g1, g2 = _shear(params)
+    return dict(obs=obs, psf=torch.zeros_like(obs), gt=gt, alpha=alpha, snr=snr, gal_g1=g1, gal_g2=g2)
+
+
 def render_perturbed_psfs(params: dict, signs: torch.Tensor, cfg: SimulationConfig, shear_err: float = 0.0,
                           fwhm_err: float = 0.0) -> torch.Tensor:
     """Each sample's PSF (n, fov, fov) with a systematic error: +-shear_err on
@@ -580,3 +604,27 @@ def simulate_perturbed_psfs(seed: int, n: int, cfg: SimulationConfig = Simulatio
     draw per seed, shared by every error level."""
     pgen, _, sgen = chunk_generators(seed, device)
     return render_perturbed_psfs(sample_params(pgen, n, cfg), draw_signs(sgen, n), cfg, shear_err, fwhm_err)
+
+
+def simulate_batch_denoise(seed: int, n: int, cfg: SimulationConfig = SimulationConfig(), device="cuda") -> dict:
+    """A denoising-task batch from chunk seed ``seed`` on ``device`` (see
+    :func:`render_batch_denoise`): the scenes of :func:`simulate_batch`'s
+    parameter draw, the SNR drawn after them from the same generator."""
+    pgen, ngen, _ = chunk_generators(seed, device)
+    params = sample_params(pgen, n, cfg)
+    return render_batch_denoise(params, draw_denoise_snr(pgen, n), draw_noise(ngen, n, cfg), cfg)
+
+
+def to_unit_scale(batch: dict) -> dict:
+    """A denoising-task batch divided by its per-sample flux scale alpha: obs =
+    gal + noise / alpha on the scale of the ADMM loop variable."""
+    a = batch["alpha"][:, None, None]
+    return {**batch, "obs": batch["obs"] / a, "gt": batch["gt"] / a}
+
+
+def simulate_batch_denoise_unit(seed: int, n: int, cfg: SimulationConfig = SimulationConfig(),
+                                device="cuda") -> dict:
+    """:func:`simulate_batch_denoise` at unit scale (:func:`to_unit_scale`): a
+    denoiser trained on it sees inputs at the scale of ADMMNet's z-update
+    input x + u1, unlike the reference's raw-ADU denoise training."""
+    return to_unit_scale(simulate_batch_denoise(seed, n, cfg, device))

@@ -104,6 +104,12 @@ class UnrolledADMMGaussian(nn.Module):
             self.rho_iters = nn.Parameter(torch.ones(n_iters))
         self.resunet = ResUNet(features=features).to(dtype)
 
+    def reset_scalars(self) -> None:
+        """flax's initial learnt schedule: rho_iters ones."""
+        if self.subnet is None:
+            with torch.no_grad():
+                self.rho_iters.fill_(1.0)
+
     def _rho_schedule(self, psf, alpha, B):
         if self.subnet is None:
             return self.rho_iters[None, :].expand(B, self.n_iters)

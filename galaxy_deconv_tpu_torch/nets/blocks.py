@@ -1,6 +1,6 @@
-"""Conv blocks of the ResUNet and the SubNet, NCHW.
+"""Conv blocks of the ResUNet, the SubNet and the XDenseUNet, NCHW.
 
-Counterparts of ``galaxy_deconv_tpu/nets/blocks.py:20-81``.  Flax's "SAME"
+Counterparts of ``galaxy_deconv_tpu/nets/blocks.py:20-102``.  Flax's "SAME"
 3x3 convolution is ``padding=1``; every ResUNet convolution is bias-free;
 flax BatchNorm momentum 0.9 is torch momentum 0.1, eps 1e-5.
 """
@@ -82,3 +82,17 @@ class DoubleConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn0(self.conv0(x)))
         return F.relu(self.bn1(self.conv1(x)))
+
+
+class SeparableConv(nn.Module):
+    """Depthwise ``kernel_size`` conv (``groups`` = channels) then pointwise
+    1x1 conv, both bias-free, computing in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_features, in_features, kernel_size, padding=kernel_size // 2,
+                                   groups=in_features, bias=False, dtype=dtype)
+        self.pointwise = nn.Conv2d(in_features, features, 1, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))

@@ -1,5 +1,5 @@
-"""Average downsampling and the ResUNet's edge padding (counterparts of
-``galaxy_deconv_tpu/ops/resize.py:15-41``)."""
+"""Average downsampling, the ResUNet's edge padding and the XDenseUNet's
+nearest upsampling (counterparts of ``galaxy_deconv_tpu/ops/resize.py:15-50``)."""
 
 from __future__ import annotations
 
@@ -27,3 +27,9 @@ def pad_to_multiple_edge(x: torch.Tensor, multiple: int = 8) -> tuple[torch.Tens
     if ph == 0 and pw == 0:
         return x, (H, W)
     return F.pad(x, (0, pw, 0, ph), mode="replicate"), (H, W)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsample of an NCHW tensor's spatial axes by an
+    integer factor (the JAX version upsamples NHWC)."""
+    return x.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)

@@ -24,8 +24,11 @@ def init_parameters(model: nn.Module, seed: int) -> None:
     """Fill ``model`` from a CPU ``torch.Generator`` seeded with ``seed``, as
     flax initialises: weights from flax's default ``lecun_normal``, a normal
     truncated at two standard deviations and scaled to variance 1/fan_in (so
-    |w| * sqrt(fan_in) <= 2 / 0.8796...); biases 0, BatchNorm identity,
-    rho_iters 1.  The same seed gives the same weights on every device."""
+    |w| * sqrt(fan_in) <= 2 / 0.8796...; a depthwise conv's fan_in is its
+    taps, as flax's with ``feature_group_count`` = channels); biases 0,
+    BatchNorm identity; each module's learnt scalars (``rho_iters``,
+    ``lam_raw``, ...) flax's initial values, set by its ``reset_scalars``.
+    The same seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -42,8 +45,8 @@ def init_parameters(model: nn.Module, seed: int) -> None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
-        if getattr(model, "rho_iters", None) is not None:
-            model.rho_iters.fill_(1.0)
+            if hasattr(mod, "reset_scalars"):
+                mod.reset_scalars()
 
 
 class Pipeline:

@@ -61,7 +61,8 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam)
         for p in params.values():
             p.grad = None
         loss = loss_fn(gt, model(obs, psf, alpha))
-        loss.backward()
+        if params:  # else every parameter is frozen and nothing trains
+            loss.backward()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params.items()}
         updates, new_opt = optimizer.update(grads, state.opt_state)
         with torch.no_grad():

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -83,7 +83,7 @@ class ClippedAdam:
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamState) -> tuple[dict, AdamState]:
         """(updates, new state) for ``grads``; the caller adds the updates to
         the parameters.  Neither ``grads`` nor ``state`` is modified."""
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()) + torch.zeros(()))
         unclipped = norm < self.clip_norm
         count = state.count + 1
         bc1 = float(1 - np.float32(B1) ** count)
@@ -113,10 +113,21 @@ def update_is_good(loss: torch.Tensor, updates: Mapping[str, torch.Tensor]) -> t
     return torch.stack(finite).all()
 
 
-def create_train_state(model: nn.Module, seed: int, optimizer: Optional[ClippedAdam] = None
-                       ) -> tuple[TrainState, ClippedAdam]:
+def create_train_state(model: nn.Module, seed: int, optimizer: Optional[ClippedAdam] = None,
+                       frozen_mask_fn: Optional[Callable[[str], bool]] = None) -> tuple[TrainState, ClippedAdam]:
     """Weights from ``seed`` (:func:`pipeline.init_parameters`, any device) and a
-    fresh optimizer state on the model's device."""
+    fresh optimizer state on the model's device.
+
+    ``frozen_mask_fn(name) -> bool`` marks parameters that never train
+    (ADMMNet's frozen denoiser, loaded after this call): they get
+    ``requires_grad=False``, so, as under the JAX package's
+    ``optax.multi_transform(..., set_to_zero())``, they have no Adam moments,
+    their gradients stay out of the clip's global norm, and they never move;
+    the checkpoint still carries them."""
     init_parameters(model, seed)
+    if frozen_mask_fn is not None:
+        for name, p in model.named_parameters():
+            if frozen_mask_fn(name):
+                p.requires_grad_(False)
     optimizer = optimizer or default_optimizer()
     return TrainState(step=0, model=model, opt_state=optimizer.init(model)), optimizer

@@ -1,4 +1,5 @@
-"""Where the PyTorch port's flagship spends its device time, serving and training.
+"""Where the PyTorch port's flagship and the Poisson Unrolled_ADMM(8) spend
+their device time, serving and training.
 
     python3 scripts/profile_torch_pipeline.py
 
@@ -8,7 +9,10 @@ pipeline (UnrolledADMMGaussian(8), full width, weights from seed 0, then the
 shear estimate) at ``chip_smoke.py``'s batch, then ``FORWARDS`` calls under
 ``torch.profiler``; then one fp32 train step (MultiScale loss, clipped Adam)
 at ``chip_smoke.py``'s training batch on its synthetic stamps, two warm-up
-steps, then ``TRAIN_STEPS`` steps under the profiler.  Prints for each the
+steps, then ``TRAIN_STEPS`` steps under the profiler; then the zoo's
+Poisson ``Unrolled_ADMM(8)`` (ResUNet(64, 128, 256, 512) + SubNet(16), full
+width, seed 0, fp32 through ``make_apply_fn``) and the shear estimate on the
+same stamps and batch.  Prints for each the
 wall time per call, the device's busy time and idle share over the window,
 the device time by kernel class, and the ten most expensive kernels.  Fails
 when there is no card or the profiler records no device time.
@@ -27,7 +31,9 @@ from torch.profiler import profile as profile_ctx
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from chip_smoke import BATCH, TRAIN_BATCH, bench_inputs, card_line, galaxy_stamps  # noqa: E402
+from galaxy_deconv_tpu_torch.eval import make_apply_fn  # noqa: E402
 from galaxy_deconv_tpu_torch.losses import MultiScaleLoss  # noqa: E402
+from galaxy_deconv_tpu_torch.metrics import estimate_shear  # noqa: E402
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian  # noqa: E402
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline  # noqa: E402
 from galaxy_deconv_tpu_torch.train import create_train_state, make_train_step  # noqa: E402
@@ -111,15 +117,28 @@ def profile_train_step() -> None:
           f"{host_ms(lambda: optimizer.update(grads, state.opt_state)):.3f}")
 
 
+def profile_zoo() -> None:
+    apply_fn = make_apply_fn("Unrolled_ADMM(8)", device="cuda")
+    obs, psf, alpha = (torch.as_tensor(a, device="cuda") for a in bench_inputs(BATCH))
+
+    def call():
+        with torch.inference_mode():
+            return estimate_shear(apply_fn(obs, psf, alpha))
+
+    call()
+    profile("Unrolled_ADMM(8) Poisson fp32", call, FORWARDS, BATCH)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_pipeline: no CUDA device is available", file=sys.stderr)
         return 1
     print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off inside the "
-          f"pipeline's calls and the train step")
+          f"pipeline's calls, the train step and make_apply_fn's calls")
     for dtype in (torch.float32, torch.bfloat16):
         profile_dtype(dtype)
     profile_train_step()
+    profile_zoo()
     return 0
 
 

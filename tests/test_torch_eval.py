@@ -32,7 +32,7 @@ from galaxy_deconv_tpu_torch.models import (NoDeconv, RichardsonLucy, UnrolledAD
 from galaxy_deconv_tpu_torch.ops import fourier
 from galaxy_deconv_tpu_torch.train import create_train_state
 from galaxy_deconv_tpu_torch.train.checkpoint import save_checkpoint
-from galaxy_deconv_tpu_torch.utils import unrolled_admm_gaussian_state_dict
+from galaxy_deconv_tpu_torch.utils import model_state_dict
 
 GOLDEN_REL = 2e-4
 JAX_REL = 1e-5
@@ -170,8 +170,18 @@ def test_build_model_names_and_suffixes(name, cls, n_iters):
 @pytest.mark.parametrize("name", ["Unrolled_ADMM(8)", "Tikhonet", "Tikhonet_Laplacian", "ShapeNet", "ADMMNet",
                                   "ADMMNet_scaled", "ADMMNet_fixed", "ResUNet"])
 def test_build_model_refuses_unported_jax_names(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        build_model(name)
+    """Every zoo name of the JAX registry builds, with the JAX module's
+    attributes: n_iters from the suffix, Tikhonet's filter, ADMMNet's
+    denoiser_scale and poisson_prox (the name is kept from when these were
+    refused)."""
+    from galaxy_deconv_tpu.models import registry as jregistry
+
+    want, got = jregistry.build_model(name), build_model(name)
+    assert type(got).__name__ == {"ResUNet": "ResUNetDenoiser"}.get(type(want).__name__, type(want).__name__)
+    for attr in ("n_iters", "filter", "laplacian", "llh", "denoiser_scale", "poisson_prox", "rho1", "rho2"):
+        assert getattr(got, attr, None) == getattr(want, attr, None), attr
+    if name == "Unrolled_ADMM(8)":
+        assert got.n_iters == 8 and got.subnet.dense[2].out_features == 16
 
 
 def test_build_model_unknown_name_raises_keyerror():
@@ -206,7 +216,7 @@ def flagship():
 
     trained = pathlib.Path(__file__).resolve().parent.parent / "trained"
     v = jax.tree.map(np.asarray, unpack_variables(restore_checkpoint(trained, *FLAGSHIP)))
-    return v, unrolled_admm_gaussian_state_dict(v["params"], v["batch_stats"])
+    return v, model_state_dict(v["params"], v["batch_stats"])
 
 
 METHODS = ["No_Deconv", "FPFS", "Wiener", "Richard-Lucy(10)", "Unrolled_ADMM_Gaussian(8)"]

@@ -18,7 +18,7 @@ from galaxy_deconv_tpu.models.unrolled_admm_gaussian import UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.metrics import estimate_shear
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline
-from galaxy_deconv_tpu_torch.utils import unrolled_admm_gaussian_state_dict
+from galaxy_deconv_tpu_torch.utils import model_state_dict
 
 RTOL, ATOL = 1e-4, 5e-4
 FLAGSHIP = ("Gaussian_PnP_ADMM_8iters_MultiScale", 7000)
@@ -62,7 +62,7 @@ def both(rng, subnet=True, rho_bounds=None, analysis=False, fft_impl="fft", bf16
     if not subnet:  # a non-trivial learnable schedule
         v["params"]["rho_iters"] = np.array([0.3, 1.7], np.float32)
     tm = UnrolledADMMGaussian(**kw, fft_impl=fft_impl, dtype=torch.bfloat16 if bf16 else torch.float32)
-    tm.load_state_dict(unrolled_admm_gaussian_state_dict(v["params"], v.get("batch_stats")))
+    tm.load_state_dict(model_state_dict(v["params"], v.get("batch_stats")))
     want = jm.apply(v, jnp.asarray(y), jnp.asarray(psf), jnp.asarray(alpha))
     with torch.no_grad():
         got = tm.eval()(*map(torch.from_numpy, (y, psf, alpha)))
@@ -157,7 +157,7 @@ def flagship(fixtures_dir):
 
     trained = pathlib.Path(__file__).resolve().parent.parent / "trained"
     v = as_np(unpack_variables(restore_checkpoint(trained, *FLAGSHIP)))
-    sd = unrolled_admm_gaussian_state_dict(v["params"], v["batch_stats"])
+    sd = model_state_dict(v["params"], v["batch_stats"])
     g = np.load(fixtures_dir / "solver_goldens.npz")
     return v, sd, (g["obs"][None], g["psf"][None], np.reshape(g["alpha"], (1,)))
 

@@ -2,11 +2,11 @@
 
 Every module of galaxy_deconv_tpu_torch and chip_smoke.py imports with jax,
 flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline,
-training (through ``cli train``), generate and test phases and the package's
-``python -m`` entry point (``generate`` then ``test``) run on the CPU (at a
-tiny size, through the plain x-update solve and its plain backward) with them
-blocked.  chip_smoke.py exits non-zero and prints no result without a card,
-and when it stands alone in a directory."""
+training (through ``cli train``), generate, test and zoo phases and the
+package's ``python -m`` entry point (``generate`` then ``test``) run on the
+CPU (at a tiny size, through the plain x-update solve and its plain
+backward) with them blocked.  chip_smoke.py exits non-zero and prints no
+result without a card, and when it stands alone in a directory."""
 
 import ast
 import os
@@ -133,6 +133,35 @@ print("eval phases ok")
     res = run_blocked(body, timeout=600)
     assert res.returncode == 0, res.stderr
     assert "eval phases ok" in res.stdout and "gal/s" in res.stdout
+
+
+def test_chip_smoke_zoo_phase_runs_on_cpu_without_jax():
+    """Phase 9 at a tiny size, which runs the zoo's commands (``generate
+    --task Denoise``, ``train --model ResUNet|Tikhonet``, ``test`` with zoo
+    names) in this JAX-blocked process: one model of each class, one-iteration
+    solvers and narrow nets for the card-against-CPU check, 3 galaxies, 8
+    training stamps (one step of each trainer)."""
+    body = """
+import importlib.util, pathlib, tempfile, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+torch.set_num_threads(2)  # the full-width models' CPU work, on a machine whose cores may be shared
+cpu = torch.device("cpu")
+narrow = {"features": (8, 8, 8, 8)}
+methods = ("Unrolled_ADMM(1)", "ShapeNet", "ADMMNet_fixed(1)", "ResUNet")
+with tempfile.TemporaryDirectory() as tmp:
+    root = pathlib.Path(tmp) / "data"
+    cs.phase_generate(cpu, root, n_train=2, n_test=3, pupil_n=16, chunk=4, errs=(0.05,), n_check=2)
+    res = cs.phase_zoo(cpu, root, pathlib.Path(tmp) / "zoo", "cpu", methods=methods, n_gal=3, batch=2, snrs=(20,),
+                       n_check=2, n_denoise=8, train_batch=4,
+                       model_kwargs={m: narrow for m in methods if m != "ShapeNet"})
+assert set(res["rec_rel"]) == set(methods) and max(res["rec_rel"].values()) == 0
+assert res["train"]["ResUNet"]["steps"] == res["train"]["Tikhonet"]["steps"] == 1
+print("zoo phase ok")
+"""
+    res = run_blocked(body, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert "zoo phase ok" in res.stdout and "ShapeNet refused" in res.stdout and "bit-exact" in res.stdout
 
 
 def test_cli_generate_then_test_run_on_cpu_without_jax(tmp_path):

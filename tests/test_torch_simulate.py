@@ -333,8 +333,12 @@ def test_dataset_variant_falls_back_to_gt(trees, tmp_path):
 
 
 def test_cli_generate_refuses_denoise_and_needs_a_card(tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["generate", "--data_path", str(tmp_path), "--task", "Denoise", "--device", "cpu"])
+    """``--task Denoise`` generates (the name is kept from when it was refused),
+    and the default device is the card."""
+    root = cli.main(["generate", "--data_path", str(tmp_path / "dn"), "--task", "Denoise", "--n_train", "2",
+                     "--n_test", "1", "--pupil_n", "8", "--device", "cpu"])
+    assert json.loads((root / "info.json").read_text())["task"] == "Denoise"
+    assert np.load(root / "train" / "gt.npy").shape == (2, 48, 48)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["generate", "--data_path", str(tmp_path / "d"), "--n_train", "1", "--n_test", "1",

@@ -513,5 +513,6 @@ def test_cli_train_on_cpu(packed, tmp_path):
 
 
 def test_cli_refuses_unported_models(packed):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["train", "--model", "Tikhonet", "--data_path", str(packed), "--device", "cpu"])
+    """ShapeNet trains with the Shape loss, which is not ported."""
+    with pytest.raises(SystemExit, match="Shape loss, which is not ported yet"):
+        cli.main(["train", "--model", "ShapeNet", "--data_path", str(packed), "--device", "cpu"])
