@@ -61,8 +61,24 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              --task Denoise`` on the card, then ``cli train --model ResUNet``
              for one epoch on that tree; (d) ``cli train --model Tikhonet`` for
              one epoch on phase 6's stamps; for (c) and (d) finite losses, the
-             checkpoint restoring bit for bit, and ``--model ShapeNet``
-             refused naming the Shape loss.
+             checkpoint restoring bit for bit;
+10. trainers the remaining trainers and losses at full width, weights from
+             seed 0: (a) ``cli train --online`` of the flagship, 20 steps of
+             B = 32 in calls of 10 on batches rendered on the card at the
+             default optics, validation every 10 steps over 2 fixed batches:
+             finite losses, the history and its best step, the step-20
+             checkpoint restoring bit for bit, 8 + 8 solve launches per step
+             and 8 per validation forward; one call of 10 steps run under
+             ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), its
+             ms per step, the simulator's share and the peak memory; one step
+             on a batch rendered on the card against the same step on the
+             CPU; (b) one epoch of ``fit_device_resident`` on phase 6's
+             stamps: finite losses, the launches, its first step against
+             ``make_train_step`` on the same minibatch, k = 4 steps of
+             ``make_indexed_multi_step`` against 4 single steps, ms per step;
+             (c) one epoch of ``cli train --model ShapeNet`` (the Shape loss,
+             no solve launch, its checkpoint), and the Shape, BestEllipse and
+             moment losses and their gradients on the card against the CPU.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -74,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import pathlib
 import re
@@ -81,6 +98,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -89,14 +107,24 @@ from galaxy_deconv_tpu_torch import cli
 from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, train_val_indices
 from galaxy_deconv_tpu_torch.data import simulate as sim
 from galaxy_deconv_tpu_torch.eval import harness
-from galaxy_deconv_tpu_torch.losses import MultiScaleLoss, get_model_name
+from galaxy_deconv_tpu_torch.losses import MultiScaleLoss, build_loss, get_model_name
 from galaxy_deconv_tpu_torch.metrics.shear import estimate_shear, fpfs_moments
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.ops import native
 from galaxy_deconv_tpu_torch.ops import x_update as xu
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline
-from galaxy_deconv_tpu_torch.train import create_train_state, make_train_step, restore_checkpoint
+from galaxy_deconv_tpu_torch.train import (
+    create_train_state,
+    fit_device_resident,
+    make_indexed_multi_step,
+    make_indexed_train_step,
+    make_online_train_scan,
+    make_train_step,
+    restore_checkpoint,
+    upload_split,
+)
 from galaxy_deconv_tpu_torch.train.checkpoint import state_payload
+from galaxy_deconv_tpu_torch.train.online import TRAIN, step_seed
 
 BATCH = 256
 TRAIN_BATCH = 32  # config.py's default batch
@@ -160,6 +188,31 @@ EVAL_METHODS = (*cli.DEFAULT_METHODS, "Wiener", "Unrolled_ADMM_Gaussian(8)")
 # The zoo's seed-0 reconstructions, card against CPU, max |d| / max |CPU|: the
 # BASELINE_REC_REL_TOL above, fixed before the first reading.
 ZOO_METHODS = ("Unrolled_ADMM(8)", "Tikhonet_Laplacian", "ShapeNet", "ADMMNet(8)", "ADMMNet_fixed(8)", "ResUNet")
+# Phase 10.  Card against CPU on the same inputs, limits fixed before the first
+# reading: the first device-resident step against make_train_step on the same
+# minibatch and card (only the order of the card's own sums differs) at
+# DR_LOSS_REL_TOL of the loss; k fused indexed steps against k single ones:
+# the losses at LOSS_REL_TOL, the parameters within MULTI_PARAM_TOL learning
+# rates (as tests/test_torch_train.py holds 3 steps to JAX; the SubNet's
+# zero-gradient conv biases only finite).  The Shape, BestEllipse and moment
+# losses: values to LOSS_VALUE_REL_TOL, gradients to LOSS_GRAD_TOL of the
+# largest CPU entry; BestEllipse with the card's conics (the SVD's last right
+# singular vector, whose sign no solver fixes) given the CPU's signs, the
+# share of conics whose signs differ printed.
+# BestEllipse's value is held otherwise: the card's and the CPU's float32
+# values each against the float64 value on the same inputs (every side's
+# conics with the CPU's signs), at BEST_ELLIPSE_VALUE_REL_TOL.  Its float32
+# conics (smallest singular vectors) and the conic-to-ellipse algebra carry
+# ~1e-5 of the value on their own: the CPU's float32 value reads 1.58e-5 from
+# its float64 value on phase 6's stamps, and the card's 1.74e-5 from the
+# CPU's, so the card-against-CPU limit of 1e-5 fixed first could not hold the
+# CPU's own rounding; the limit is set above those readings.
+DR_LOSS_REL_TOL = 1e-6
+MULTI_PARAM_TOL = 0.02
+LOSS_VALUE_REL_TOL = 1e-5
+BEST_ELLIPSE_VALUE_REL_TOL = 5e-5
+LOSS_GRAD_TOL = 1e-4
+ONLINE_STEPS, ONLINE_PER_CALL, ONLINE_VAL_EVERY, ONLINE_VAL_BATCHES = 20, 10, 10, 2
 
 
 def bench_inputs(B: int, seed: int = 0):
@@ -565,10 +618,10 @@ def grad_errors(loss, grads, ref_loss, ref_grads) -> tuple[float, float, str, fl
     return abs(loss - ref_loss) / abs(ref_loss), rel[worst], worst, zero
 
 
-def _check_checkpoint(state, save: pathlib.Path, name: str) -> int:
-    """The epoch-1 checkpoint of run ``name`` restores ``state`` bit for bit;
+def _check_checkpoint(state, save: pathlib.Path, name: str, epoch: int = 1) -> int:
+    """The checkpoint ``epoch`` of run ``name`` restores ``state`` bit for bit;
     returns the number of tensors compared."""
-    restored, trained = restore_checkpoint(save, name, 1), state_payload(state)
+    restored, trained = restore_checkpoint(save, name, epoch), state_payload(state)
     pairs = [(trained["model"][k], restored["model"][k]) for k in trained["model"]]
     pairs += [(trained["opt_state"][m][k], restored["opt_state"][m][k]) for m in ("mu", "nu")
               for k in trained["opt_state"][m]]
@@ -875,16 +928,267 @@ def phase_zoo(device, root: pathlib.Path, work: pathlib.Path, card: str, methods
               f": train_loss {hist['train_loss'][0]:.6g}, val_loss {hist['val_loss'][0]:.6g}, epoch "
               f"{hist['epoch_time'][0]:.2f} s ({state.step * train_batch / hist['epoch_time'][0]:.1f} gal/s with "
               f"validation); checkpoint restores {n} tensors bit-exact; no solve launches")
-    try:
-        cli.main(["train", "--model", "ShapeNet", "--data_path", str(stamps), "--device", device.type])
-    except SystemExit as e:
-        if "Shape loss" not in str(e):
-            raise AssertionError(f"cli train --model ShapeNet exited with {e}") from None
-        print(f"zoo: cli train --model ShapeNet refused: {e}")
-    else:
-        raise AssertionError("cli train --model ShapeNet ran; the Shape loss is not ported")
     print(f"zoo (c): cli generate --task Denoise, {n_denoise} + {train_batch} galaxies: {gen_s:.2f} s")
     return {"rec_rel": rec_rel, "rates": rates, "train": train, "denoise_s": gen_s}
+
+
+def phase_online(device, card: str, save: pathlib.Path, B=TRAIN_BATCH, n_steps=ONLINE_STEPS, k=ONLINE_PER_CALL,
+                 val_every=ONLINE_VAL_EVERY, val_batches=ONLINE_VAL_BATCHES, pupil_n=512,
+                 n_iters=FLAGSHIP["n_iters"], features=FLAGSHIP["features"], n_check=N_CPU_CHECK,
+                 zero_tol=ZERO_GRAD_TOL) -> dict:
+    """Phase 10 (a): ``cli train --online``, then one fused call checked for
+    host syncs and timed, and one step on a rendered batch against the CPU
+    (``zero_tol``: the zero-gradient biases' limit, ZERO_GRAD_TOL for the
+    full-width flagship).  The command runs ``fit_online`` with its cadences
+    set here (its defaults validate every 500 steps and save every 5,000) and
+    with a ``pupil_n`` pupil (the command's optics are the default 512)."""
+    name = get_model_name("Unrolled_ADMM", "MultiScale", n_iters=n_iters)
+    cadences = functools.partial(cli.fit_online, val_every=val_every, val_batches=val_batches, save_every=n_steps)
+    optics = functools.partial(sim.SimulationConfig, pupil_n=pupil_n, pupil_pad=2 * pupil_n)
+    xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+    with mock.patch.object(cli, "fit_online", cadences), mock.patch.object(cli, "SimulationConfig", optics):
+        state, hist = cli.main(["train", "--online", "--n_steps", str(n_steps), "--steps_per_call", str(k),
+                                "--batch_size", str(B), "--n_iters", str(n_iters), "--model_save_path", str(save),
+                                "--seed", "0", "--device", device.type])
+    _sync(device)
+    fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
+    vals = n_steps // val_every
+    written = json.loads((save / f"{name}_history.json").read_text())
+    if (state.step != n_steps or hist["step"] != [val_every * (i + 1) for i in range(vals)] or written != hist
+            or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+            or hist["best_step"] not in hist["step"] or checkpoint_steps(save, name) != {*hist["step"]}):
+        raise AssertionError(f"cli train --online: {state.step} steps, history {hist}")
+    want = (n_iters * (n_steps + vals * val_batches), n_iters * n_steps) if device.type == "cuda" else (0, 0)
+    if (fwd, bwd) != want:
+        raise AssertionError(f"online: solve launches forward {fwd}, backward {bwd}; expected {want}")
+    n = _check_checkpoint(state, save, name, n_steps)
+    print(f"trainers (a) ({device.type}, {card}): cli train --online, {n_steps} steps of B={B} in calls of {k}, "
+          f"n_iters={n_iters}, pupil {pupil_n}: train_loss " + " ".join(f"{x:.6g}" for x in hist["train_loss"])
+          + ", val_loss " + " ".join(f"{x:.6g}" for x in hist["val_loss"]) + f" over {val_batches} fixed batches, "
+          f"best step {hist['best_step']}, {hist['galaxies_per_sec']:.1f} gal/s with validation and checkpoints; "
+          f"solve launches forward {fwd}, backward {bwd}; the step-{n_steps} checkpoint restores {n} tensors, step "
+          "and count bit-exact")
+
+    # one fused call under the sync debugger, then a timed one
+    cfg = sim.SimulationConfig(pupil_n=pupil_n, pupil_pad=2 * pupil_n)
+    model = UnrolledADMMGaussian(n_iters=n_iters, features=features).to(device)
+    st, optimizer = create_train_state(model, 0)
+    scan = make_online_train_scan(model, MultiScaleLoss(), optimizer, B, k, cfg)
+    call = iter(range(10**6))
+
+    def run():
+        c = next(call)
+        return scan(st, [step_seed(0, TRAIN, c * k + j) for j in range(k)])[1]
+
+    run()  # warm-up: FFT plans, the simulator's grids
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = run()
+    finally:
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = torch.cat([losses, run()]).cpu()
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) / k * 1e3
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"online fused calls: losses {losses.tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+    render_ms = (eager_ms(lambda: sim.simulate_batch(12345, B, cfg, device=device), 5) if device.type == "cuda"
+                 else float("nan"))
+    print(f"trainers (a) ({device.type}, {card}): a call of {k} online steps ran under "
+          f"torch.cuda.set_sync_debug_mode('error') with no host sync; {step_ms:.2f} ms per step, "
+          f"{B / step_ms * 1e3:.1f} gal/s (one call of {k} after warm-up, host clock around it); the simulator "
+          f"alone {render_ms:.2f} ms per batch of {B} ({render_ms / step_ms:.1%} of a step); peak memory "
+          f"{peak:.2f} GiB")
+
+    # one step on a batch rendered on the device, against the same step on the CPU
+    rendered = sim.simulate_batch(step_seed(0, TRAIN, 10**6), n_check, cfg, device=device)
+    batch = {k_: v.cpu().numpy() for k_, v in rendered.items()}
+    batch["alpha"] = batch["obs"].mean(axis=(-2, -1))
+    ref_loss, ref_grads = one_train_step(torch.device("cpu"), batch, n_iters, features)
+    loss_rel, grad_rel, worst, zero = grad_errors(*one_train_step(device, batch, n_iters, features),
+                                                  ref_loss, ref_grads)
+    print(f"trainers (a): one step on {n_check} galaxies rendered on {device.type}, vs CPU: loss rel err "
+          f"{loss_rel:.3e} (tol {LOSS_REL_TOL}), worst gradient rel err {grad_rel:.3e} in {worst} (tol "
+          f"{GRAD_REL_TOL}), zero-gradient biases {zero:.3e} (tol {zero_tol})")
+    if not (loss_rel <= LOSS_REL_TOL and grad_rel <= GRAD_REL_TOL and zero <= zero_tol):
+        raise AssertionError("the card's online step disagrees with the CPU's")
+    return {"forward_launches": fwd, "backward_launches": bwd, "step_ms": step_ms, "render_ms": render_ms,
+            "peak_gib": peak, "hist": hist}
+
+
+def checkpoint_steps(save: pathlib.Path, name: str) -> set:
+    """The step or epoch numbers of run ``name``'s checkpoint directories."""
+    pat = re.compile(re.escape(name) + r"_(\d+)epochs$")
+    return {int(m.group(1)) for p in save.iterdir() if (m := pat.match(p.name))}
+
+
+def _fresh(device, n_iters, features):
+    model = UnrolledADMMGaussian(n_iters=n_iters, features=features).to(device)
+    return (model, *create_train_state(model, 0))
+
+
+def phase_device_resident(device, card: str, root: pathlib.Path, B=TRAIN_BATCH, n_iters=FLAGSHIP["n_iters"],
+                          features=FLAGSHIP["features"], k=4) -> dict:
+    """Phase 10 (b): one epoch of ``fit_device_resident``; its step against
+    ``make_train_step``; k fused indexed steps against k single ones."""
+    ds = GalaxyDataset(root)
+    model, state, optimizer = _fresh(device, n_iters, features)
+    xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+    state, hist = fit_device_resident(model, state, optimizer, MultiScaleLoss(), ds, n_epochs=1, batch_size=B,
+                                      train_val_split=0.9, seed=0)
+    _sync(device)
+    fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
+    tr_idx, _ = train_val_indices(len(ds), 0.9, 0)
+    steps = len(tr_idx) // B
+    want = (n_iters * (steps + 1), n_iters * steps) if device.type == "cuda" else (0, 0)
+    if state.step != steps or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all() or (fwd, bwd) != want:
+        raise AssertionError(f"fit_device_resident: {state.step} steps, history {hist}, launches {fwd}, {bwd}; "
+                             f"expected {steps} steps, launches {want}")
+
+    # the epoch's first minibatch: the indexed step against make_train_step
+    order = tr_idx.copy()
+    np.random.default_rng(0).shuffle(order)
+    data = upload_split(ds, device=device)
+    idx = torch.as_tensor(order[:B], device=device)
+    a_model, a_state, a_opt = _fresh(device, n_iters, features)
+    _, a_loss = make_indexed_train_step(a_model, MultiScaleLoss(), a_opt, data)(a_state, idx)
+    b_model, b_state, b_opt = _fresh(device, n_iters, features)
+    _, b_loss = make_train_step(b_model, MultiScaleLoss(), b_opt)(b_state, ds.batch(order[:B]))
+    first_rel = abs(float(a_loss) - float(b_loss)) / abs(float(b_loss))
+
+    # k fused indexed steps against k single indexed steps, with cuDNN's deterministic algorithms (Adam's first
+    # steps move a parameter whose gradient is rounding noise by a whole lr either way, so the atomics of a
+    # nondeterministic weight-gradient algorithm alone move it by 2 lr), then a timed fused call
+    idxs = torch.as_tensor(order[: k * B].reshape(k, B), device=device)
+    with deterministic():
+        c_model, c_state, c_opt = _fresh(device, n_iters, features)
+        multi = make_indexed_multi_step(c_model, MultiScaleLoss(), c_opt, data)
+        c_state, c_loss = multi(c_state, idxs)
+        d_model, d_state, d_opt = _fresh(device, n_iters, features)
+        single = make_indexed_train_step(d_model, MultiScaleLoss(), d_opt, data)
+        d_losses = [single(d_state, i)[1] for i in idxs]
+    multi_rel = abs(float(c_loss) - float(torch.stack(d_losses).mean())) / abs(float(c_loss))
+    d_params = dict(d_model.named_parameters())
+    with torch.no_grad():
+        param_lr = max(float((p - d_params[n]).abs().max()) / c_opt.lr for n, p in c_model.named_parameters()
+                       if not _zero_grad_param(n))
+    finite = all(torch.isfinite(p).all() for p in c_model.parameters())
+    same = all(torch.equal(p, d_params[n]) for n, p in c_model.named_parameters())
+    # timed outside the deterministic block, after a warm-up call in the same mode: five fused calls, each
+    # waited for, as phase 6 (d) waits for each of its steps
+    multi(c_state, idxs)
+    call_ms = []
+    for _ in range(5):
+        _sync(device)
+        t0 = time.perf_counter()
+        c_state, _ = multi(c_state, idxs)
+        _sync(device)
+        call_ms.append((time.perf_counter() - t0) / k * 1e3)
+    multi_ms = float(np.median(call_ms))
+    epoch_ms = hist["epoch_time"][0] / steps * 1e3
+    print(f"trainers (b) ({device.type}, {card}): fit_device_resident, one epoch of {steps} steps at B={B} on "
+          f"{len(ds)} uploaded stamps: train_loss {hist['train_loss'][0]:.6g}, val_loss {hist['val_loss'][0]:.6g}, "
+          f"{epoch_ms:.2f} ms per step with validation; solve launches forward {fwd}, backward {bwd}; first step "
+          f"vs make_train_step on the same minibatch: loss rel err {first_rel:.3e} (tol {DR_LOSS_REL_TOL}); "
+          f"{k} fused steps vs {k} single: mean loss rel err {multi_rel:.3e} (tol {LOSS_REL_TOL}), parameters "
+          f"{param_lr:.3e} lr apart (tol {MULTI_PARAM_TOL}; bit-identical: {same}; deterministic cuDNN); fused calls "
+          f"of {k} after a warm-up call: " + ", ".join(f"{x:.2f}" for x in call_ms) + f" ms per step (median "
+          f"{multi_ms:.2f})")
+    if not (first_rel <= DR_LOSS_REL_TOL and multi_rel <= LOSS_REL_TOL and param_lr <= MULTI_PARAM_TOL and finite):
+        raise AssertionError("the device-resident steps disagree with the disk step or with each other")
+    return {"forward_launches": fwd, "backward_launches": bwd, "epoch_step_ms": epoch_ms, "multi_ms": multi_ms}
+
+
+def with_signs_of(conics: list, ref: list) -> list:
+    """Each (L, B, 6) conic of ``conics`` times -1 where its dot product with
+    the same conic of ``ref`` (on the CPU) is negative: the SVD's last right
+    singular vector, whose sign no solver fixes, given ``ref``'s signs."""
+    return [c * torch.where((c.detach().cpu().to(r.dtype) * r).sum(-1) < 0, -1.0, 1.0).to(c)[..., None]
+            for c, r in zip(conics, ref)]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (cuDNN's among them) inside the block,
+    a warning naming any operation that has none; the flags restored after."""
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def phase_shapenet_and_losses(device, card: str, root: pathlib.Path, save: pathlib.Path, B=TRAIN_BATCH) -> dict:
+    """Phase 10 (c): one epoch of ``cli train --model ShapeNet``; the three
+    losses and their gradients on the card against the CPU."""
+    xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+    state, hist = cli.main(["train", "--model", "ShapeNet", "--data_path", str(root), "--model_save_path", str(save),
+                            "--n_epochs", "1", "--batch_size", str(B), "--seed", "0", "--device", device.type])
+    _sync(device)
+    steps = len(train_val_indices(len(GalaxyDataset(root)), 0.9, 0)[0]) // B
+    if state.step != steps or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all():
+        raise AssertionError(f"cli train --model ShapeNet: {state.step} steps, history {hist}")
+    if xu.x_update_solve.launches or xu.x_update_solve_backward.launches:
+        raise AssertionError("cli train --model ShapeNet launched the solve kernels")
+    n = _check_checkpoint(state, save, "ShapeNet_Laplacian")
+    print(f"trainers (c) ({device.type}, {card}): cli train --model ShapeNet, one epoch of {steps} steps at B={B}: "
+          f"train_loss {hist['train_loss'][0]:.6g}, val_loss {hist['val_loss'][0]:.6g}, epoch "
+          f"{hist['epoch_time'][0]:.2f} s; checkpoint ShapeNet_Laplacian_1epochs restores {n} tensors bit-exact; "
+          "no solve launches")
+
+    gt = GalaxyDataset(root).batch(np.arange(B))["gt"]
+    rng = np.random.default_rng(5)
+    out = (gt + 0.05 * gt.max(axis=(1, 2), keepdims=True) * rng.standard_normal(gt.shape)).astype(np.float32)
+    readings = {}
+    for name in ("Shape", "BestEllipse", "MomentBasedLoss"):
+        fn, side = build_loss(name), {}
+        for key, d in (("cpu", torch.device("cpu")), ("device", device)):
+            o = torch.tensor(out, device=d, requires_grad=True)
+            t = torch.tensor(gt, device=d)
+            if name == "BestEllipse" and key == "device":
+                # the card's conics with the CPU's signs: the rest of the loss held as a whole
+                value = fn.from_conics(t, *with_signs_of([fn.conics(o), fn.conics(t)], side["cpu"][2]))
+            else:
+                value = fn(o, t)
+            value.backward()
+            conics = [fn.conics(x).detach().cpu() for x in (o, t)] if name == "BestEllipse" else None
+            side[key] = (value.detach().cpu(), o.grad.cpu(), conics)
+        (v_dev, g_dev, c_dev), (v_cpu, g_cpu, c_cpu) = side["device"], side["cpu"]
+        grad_rel = float((g_dev - g_cpu).abs().max() / g_cpu.abs().max())
+        note = ""
+        if name == "BestEllipse":
+            # each float32 side against the float64 value on the same inputs, the CPU's signs on every side's conics
+            x64 = [torch.tensor(a, dtype=torch.float64) for a in (out, gt)]
+            exact = fn.from_conics(x64[1], *with_signs_of([fn.conics(x) for x in x64], c_cpu))
+            cpu_rel, value_rel = (float((v - exact).abs() / exact.abs()) for v in (v_cpu, v_dev))
+            value_tol, checked = BEST_ELLIPSE_VALUE_REL_TOL, max(cpu_rel, value_rel)
+            dots = [(a * b).sum(-1).reshape(-1) for a, b in zip(c_dev, c_cpu)]
+            flipped = float(torch.cat(dots).lt(0).float().mean())
+            note = (f" (each side against the float64 value; the CPU's against it {cpu_rel:.3e}); the card's "
+                    f"conics with the CPU's signs: {flipped:.1%} of the {2 * dots[0].numel()} conics of output and "
+                    f"target differ in sign between {device.type} and the CPU, 1 - |c_{device.type} . c_cpu| <= "
+                    f"{float(1 - torch.cat(dots).abs().min()):.3e}; with {device.type}'s own signs the value is "
+                    f"{float(fn(torch.tensor(out, device=device), torch.tensor(gt, device=device))):.6g} against the "
+                    f"CPU's {float(v_cpu):.6g}")
+        else:
+            value_rel = float((v_dev - v_cpu).abs() / v_cpu.abs())
+            value_tol, checked = LOSS_VALUE_REL_TOL, value_rel
+        readings[name] = (value_rel, grad_rel)
+        print(f"trainers (c) ({device.type}) vs CPU, {name} of {B} gt stamps against a perturbed copy: value rel "
+              f"err {value_rel:.3e} (tol {value_tol}){note}; gradient max |d| / max |CPU| {grad_rel:.3e} (tol "
+              f"{LOSS_GRAD_TOL})")
+        if not (np.isfinite(float(v_dev)) and torch.isfinite(g_dev).all()):
+            raise AssertionError(f"{name}: value or gradient not finite on {device.type}")
+        if checked > value_tol or grad_rel > LOSS_GRAD_TOL:
+            raise AssertionError(f"the {name} loss on {device.type} disagrees with the CPU's")
+    return {"readings": readings, "shapenet_epoch_s": hist["epoch_time"][0]}
 
 
 def main() -> int:
@@ -917,9 +1221,21 @@ def main() -> int:
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
           f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
           "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
-    # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training and the flagship's eval sweeps
-    kernel["launches"] = fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
-    kernel_bwd["launches"] = train["backward_launches"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainers_") as tmp:
+        root = write_dataset(pathlib.Path(tmp) / "data")
+        online = phase_online(device, card, pathlib.Path(tmp) / "online")
+        resident = phase_device_resident(device, card, root)
+        shapes = phase_shapenet_and_losses(device, card, root, pathlib.Path(tmp) / "shapenet")
+    print(f"trainers ({card}): fp32, TF32 off, B={TRAIN_BATCH}: online {online['step_ms']:.2f} ms per step "
+          f"({TRAIN_BATCH / online['step_ms'] * 1e3:.1f} gal/s; the simulator {online['render_ms']:.2f} ms of it; peak "
+          f"{online['peak_gib']:.2f} GiB); device-resident {resident['multi_ms']:.2f} ms per step in fused calls of "
+          f"4 (median of 5), {resident['epoch_step_ms']:.2f} ms per step over its epoch with validation; the disk "
+          f"step of phase 6 {train['step_ms']:.2f} ms; ShapeNet's epoch {shapes['shapenet_epoch_s']:.2f} s")
+    # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training, the flagship's eval sweeps,
+    # the online run and the device-resident epoch
+    kernel["launches"] = (fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
+                          + online["forward_launches"] + resident["forward_launches"])
+    kernel_bwd["launches"] = train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

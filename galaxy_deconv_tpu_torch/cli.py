@@ -1,15 +1,18 @@
 """Command-line interface of the port (counterpart of ``galaxy_deconv_tpu/cli.py``).
 
     python -m galaxy_deconv_tpu_torch generate --data_path DIR [--task Denoise] [--device cpu] ...
-    python -m galaxy_deconv_tpu_torch train --data_path DIR [--model Tikhonet|ResUNet] [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch train --data_path DIR [--model Tikhonet|ShapeNet|ResUNet] [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch train --online --n_steps N [--steps_per_call K] [--device cpu] ...
     python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--methods ...] [--device cpu] ...
 
 ``generate`` simulates a benchmark dataset, or with ``--task Denoise`` the
 denoising task's (the reference's ``generate_data.py``); ``train`` trains the
 flagship ``Unrolled_ADMM`` (``--remove_SubNet`` for the learnt-vector
-schedule), a Tikhonet (``--filter``) or, on a Denoise tree, the standalone
-ResUNet, in float32 with TF32 off, and checkpoints into ``--model_save_path``
-as the reference's ``train.py`` does; ``test`` runs the evaluation sweeps of
+schedule), a Tikhonet (``--filter``), ShapeNet (a Tikhonet trained with the
+Shape loss) or, on a Denoise tree, the standalone ResUNet, in float32 with
+TF32 off, and checkpoints into ``--model_save_path`` as the reference's
+``train.py`` does; ``train --online`` renders every batch on the device
+instead of reading a dataset (``train/online.py``); ``test`` runs the evaluation sweeps of
 the reference's ``test.py`` and ``test_psf.py`` over a method list of any
 registry names.  Each runs on the card unless ``--device cpu``.
 """
@@ -21,11 +24,13 @@ import logging
 
 from galaxy_deconv_tpu_torch.config import add_args, from_namespace
 from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset, generate_dataset_denoise
+from galaxy_deconv_tpu_torch.data.simulate import simulate_batch, simulate_batch_denoise
 from galaxy_deconv_tpu_torch.eval import DEFAULT_PSF_ERRS, run_psf_error_test, run_shear_test, run_time_test
 from galaxy_deconv_tpu_torch.losses import build_loss, get_model_name
 from galaxy_deconv_tpu_torch.models import ResUNetDenoiser, Tikhonet, UnrolledADMMGaussian
 from galaxy_deconv_tpu_torch.train import create_train_state, default_optimizer, fit, restore_checkpoint
 from galaxy_deconv_tpu_torch.train.checkpoint import best_epoch, unpack_variables
+from galaxy_deconv_tpu_torch.train.online import fit_online
 from galaxy_deconv_tpu_torch.utils.device import resolve_device
 
 
@@ -42,25 +47,35 @@ def _cmd_generate(ns):
 
 def _cmd_train(ns):
     cfg = from_namespace(ns)
-    if cfg.model == "ShapeNet":
-        raise SystemExit("--model ShapeNet trains with the Shape loss, which is not ported yet "
-                         "(ROADMAP Queue 1: the other losses)")
     device = resolve_device(cfg.device)
     model_name = get_model_name(cfg.model, cfg.loss, filter=cfg.filter, n_iters=cfg.n_iters, llh=cfg.llh,
                                 remove_subnet=cfg.remove_subnet)
-    logging.info("training %s on %s (%s)", model_name, cfg.data_path, device)
+    logging.info("training %s on %s (%s)", model_name, "simulated batches" if ns.online else cfg.data_path, device)
 
     if cfg.model == "Unrolled_ADMM":
         # train.py:41 -- the Gaussian flagship whatever --llh says
         model = UnrolledADMMGaussian(n_iters=cfg.n_iters, subnet=not cfg.remove_subnet, fft_impl=cfg.fft_impl)
-    elif cfg.model == "Tikhonet":
+    elif cfg.model in ("Tikhonet", "ShapeNet"):
         model = Tikhonet(filter=cfg.filter)
     else:  # ResUNet, on a Denoise tree
         model = ResUNetDenoiser()
     model = model.to(device)
-    loss_fn = build_loss(cfg.loss)
-    ds = GalaxyDataset(cfg.data_path, "train")
+    loss_fn = build_loss("Shape" if cfg.model == "ShapeNet" else cfg.loss)
     state, optimizer = create_train_state(model, cfg.seed, default_optimizer(cfg.lr))
+
+    if ns.online:  # no dataset: every batch rendered on the device
+        sampler = simulate_batch_denoise if cfg.model == "ResUNet" else simulate_batch
+        state, hist = fit_online(model, state, optimizer, loss_fn, n_steps=ns.n_steps, batch_size=cfg.batch_size,
+                                 sim_cfg=SimulationConfig(), seed=cfg.seed, model_name=model_name,
+                                 save_path=cfg.model_save_path, sampler=sampler, steps_per_call=ns.steps_per_call)
+        if hist["train_loss"]:
+            print(f"final train_loss={hist['train_loss'][-1]:.5g} val_loss={hist['val_loss'][-1]:.5g} "
+                  f"({hist['galaxies_per_sec']:.0f} gal/s)")
+        else:
+            print(f"trained {ns.n_steps} steps ({hist['galaxies_per_sec']:.0f} gal/s)")
+        return state, hist
+
+    ds = GalaxyDataset(cfg.data_path, "train")
     if cfg.pretrained_epochs > 0:
         state = restore_checkpoint(cfg.model_save_path, model_name, cfg.pretrained_epochs, state)
         logging.info("resumed from epoch %d", cfg.pretrained_epochs)
@@ -135,8 +150,13 @@ def main(argv=None):
     g.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     g.set_defaults(fn=_cmd_generate)
 
-    t = sub.add_parser("train", help="train a model on a packed dataset")
+    t = sub.add_parser("train", help="train a model on a packed dataset or on batches rendered on the device")
     add_args(t)
+    t.add_argument("--online", action="store_true",
+                   help="render every batch on the device and train on it (no dataset)")
+    t.add_argument("--n_steps", type=int, default=25000, help="steps for --online")
+    t.add_argument("--steps_per_call", type=int, default=10,
+                   help="--online steps queued back to back per call, the host waiting once per call")
     t.set_defaults(fn=_cmd_train)
 
     e = sub.add_parser("test", help="evaluation sweeps")

@@ -319,8 +319,8 @@ def render_psf(params: dict, cfg: SimulationConfig, g1_err=0.0, g2_err=0.0, fwhm
     NUY, NUX = g["NUY"], g["NUX"]
 
     # a profile sheared by S has OTF(S^T nu); S is symmetric
-    g1_err = torch.as_tensor(g1_err, dtype=torch.float32, device=dev).expand(B)
-    g2_err = torch.as_tensor(g2_err, dtype=torch.float32, device=dev).expand(B)
+    g1_err, g2_err = (e.to(device=dev, dtype=torch.float32).expand(B) if isinstance(e, torch.Tensor)
+                      else torch.full((B,), float(e), device=dev) for e in (g1_err, g2_err))
     nux, nuy = _apply(reduced_shear_matrix(g1_err, g2_err).mT, NUX, NUY)
 
     g_atm = distortion_to_g(params["atmos_e"])
@@ -419,6 +419,13 @@ def _fwhm_inverse_cdf(npoints: int = 512):
     return xs.astype(np.float32), cdf.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=4)
+def _fwhm_table(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_fwhm_inverse_cdf` on ``device``, copied there once: a copy from
+    the host in every draw would make the host wait for the device."""
+    return tuple(torch.from_numpy(a).to(device) for a in _fwhm_inverse_cdf())
+
+
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
     """``jnp.interp``: piecewise-linear through (xp, fp), xp increasing, held
     at fp[0] / fp[-1] outside [xp[0], xp[-1]]; where xp repeats, the right value."""
@@ -440,7 +447,7 @@ def sample_params(gen: torch.Generator, n: int, cfg: SimulationConfig) -> dict:
     def normal(sd):
         return sd * torch.randn((n,), generator=gen, device=dev)
 
-    xs, cdf = (torch.from_numpy(a).to(dev) for a in _fwhm_inverse_cdf())
+    xs, cdf = _fwhm_table(dev)
     fwhm = interp(u(0.0, 1.0), cdf, xs)
     a, b_ = 0.01, 0.05  # p(|g|) ∝ |g| on [a, b]
     gal_g = torch.sqrt(u(0.0, 1.0) * (b_**2 - a**2) + a**2)

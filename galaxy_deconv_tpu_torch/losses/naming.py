@@ -8,9 +8,12 @@ from __future__ import annotations
 
 from typing import Callable
 
-from galaxy_deconv_tpu_torch.losses.multiscale import MultiScaleLoss, mse_loss
+import numpy as np
 
-NOT_PORTED = ("Shape", "BestEllipse", "MomentBasedLoss")
+from galaxy_deconv_tpu_torch.losses.best_ellipse import BestEllipseLoss
+from galaxy_deconv_tpu_torch.losses.moments import MomentBasedLoss
+from galaxy_deconv_tpu_torch.losses.multiscale import MultiScaleLoss, mse_loss
+from galaxy_deconv_tpu_torch.losses.shape_constraint import ShapeConstraint
 
 
 def get_model_name(
@@ -33,12 +36,19 @@ def get_model_name(
     return name
 
 
-def build_loss(loss: str, **kwargs) -> Callable:
-    """The loss named as on the reference's command line."""
+def build_loss(loss: str, fov_pixels: int = 48, **kwargs) -> Callable:
+    """The loss named as on the reference's command line (reference
+    ``train.py:58-74``)."""
     if loss == "MultiScale":
         return MultiScaleLoss(**kwargs)
     if loss == "MSE":
         return mse_loss
-    if loss in NOT_PORTED:
-        raise ValueError(f"loss {loss!r} is not ported yet (ROADMAP Queue 1: the other losses)")
+    if loss == "Shape":
+        return ShapeConstraint(fov_pixels=fov_pixels, **kwargs)
+    if loss == "BestEllipse":
+        step = 0.025
+        levels = tuple(np.arange(0.3, 0.7 + step, step))
+        return BestEllipseLoss(ellipse_levels=kwargs.pop("ellipse_levels", levels), **kwargs)
+    if loss == "MomentBasedLoss":
+        return MomentBasedLoss(**kwargs)
     raise ValueError(f"unknown loss {loss!r}")

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from galaxy_deconv_tpu_torch.train.state import AdamState, TrainState
+from galaxy_deconv_tpu_torch.train.state import AdamState, TrainState, new_count
 
 STATE_FILE = "train_state.pt"
 
@@ -27,10 +27,11 @@ def _ckpt_dir(save_path, model_name: str, epoch: int) -> pathlib.Path:
 
 
 def state_payload(state: TrainState) -> dict:
-    """A train state as plain tensors and numbers: what a checkpoint file holds."""
+    """A train state as plain tensors and numbers: what a checkpoint file holds
+    (the Adam count read back from the device as an int)."""
     opt = state.opt_state
     return {"step": state.step, "model": state.model.state_dict(),
-            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu}}
+            "opt_state": {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu}}
 
 
 def load_payload(state: TrainState, payload: dict) -> TrainState:
@@ -41,7 +42,7 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
     opt = payload["opt_state"]
     if opt["mu"].keys() != state.opt_state.mu.keys():
         raise KeyError("the checkpoint's optimizer moments name other parameters than the model's")
-    state.opt_state = AdamState(int(opt["count"]), {k: v.to(device) for k, v in opt["mu"].items()},
+    state.opt_state = AdamState(new_count(int(opt["count"]), device), {k: v.to(device) for k, v in opt["mu"].items()},
                                 {k: v.to(device) for k, v in opt["nu"].items()})
     state.step = int(payload["step"])
     return state

@@ -6,6 +6,12 @@ statistics), the loss, the backward, and the clipped Adam update, skipped
 whole when the loss or any update is not finite.  BatchNorm writes its
 running statistics during the forward, so the step snapshots them first and
 restores them on a skipped step, as the JAX step keeps its ``batch_stats``.
+The skip is a selection on the device (``torch.where`` over the flat
+vectors of the update and of Adam's moments, as the JAX step's
+``jnp.where``): the step never waits for the device, so steps queue back to
+back.  The online and device-resident trainers (``train/online.py``,
+``train/device_resident.py``) run this same step on batches they make on the
+device.
 
 The loop follows reference ``train.py:80-146``: validation every
 ``eval_every`` steps and after each epoch, a checkpoint on a new best
@@ -26,8 +32,9 @@ from torch import nn
 
 from galaxy_deconv_tpu_torch.data.dataset import GalaxyDataset, iterate_batches, train_val_indices
 from galaxy_deconv_tpu_torch.train.checkpoint import save_checkpoint
-from galaxy_deconv_tpu_torch.train.state import ClippedAdam, TrainState, update_is_good
+from galaxy_deconv_tpu_torch.train.state import AdamState, ClippedAdam, TrainState, flatten, unflatten, update_is_good
 from galaxy_deconv_tpu_torch.utils.device import fp32_only
+from galaxy_deconv_tpu_torch.utils.watchdog import StallWatchdog
 
 logger = logging.getLogger("galaxy_deconv_tpu_torch.train")
 
@@ -37,15 +44,19 @@ def _device(model: nn.Module) -> torch.device:
 
 
 def _tensors(batch: dict, device: torch.device) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32, device=device)
-                 for k in ("obs", "psf", "alpha", "gt"))
+    """obs, psf, alpha, gt as float32 tensors on ``device``; tensors already
+    there are used as they are."""
+    return tuple(torch.as_tensor(v if isinstance(v := batch[k], torch.Tensor) else np.asarray(v),
+                                 dtype=torch.float32, device=device) for k in ("obs", "psf", "alpha", "gt"))
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam):
     """The train step ``(state, batch) -> (state, loss)`` for ``state.model is
-    model``; it updates the model and ``state`` in place.  The model's
-    parameters must be float32: the JAX package trains in float32 only, and
-    the step runs with TF32 off whatever the caller's flags."""
+    model``; it updates the model and ``state`` in place and returns the loss
+    as a 0-d tensor on the device, without waiting for it.  ``batch`` holds
+    obs, psf, alpha and gt, numpy arrays or tensors.  The model's parameters
+    must be float32: the JAX package trains in float32 only, and the step runs
+    with TF32 off whatever the caller's flags."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     wrong = sorted({str(p.dtype) for p in params.values()} - {"torch.float32"})
     if wrong:
@@ -63,16 +74,21 @@ def make_train_step(model: nn.Module, loss_fn: Callable, optimizer: ClippedAdam)
         loss = loss_fn(gt, model(obs, psf, alpha))
         if params:  # else every parameter is frozen and nothing trains
             loss.backward()
-        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params.items()}
-        updates, new_opt = optimizer.update(grads, state.opt_state)
         with torch.no_grad():
-            if bool(update_is_good(loss, updates)):
-                for n, p in params.items():
-                    p.add_(updates[n])
-                state.opt_state = new_opt
-            else:
-                for b, s in zip(buffers, saved):
-                    b.copy_(s)
+            old = state.opt_state
+            mu, nu = (flatten((m[n] for n in params), device) for m in (old.mu, old.nu))
+            grads = flatten((torch.zeros_like(p) if p.grad is None else p.grad for p in params.values()), device)
+            updates, count, new_mu, new_nu = optimizer.update_flat(grads, old.count, mu, nu)
+            # one selection over each flat vector: the update, the moments and the count
+            good = update_is_good(loss, {"all": updates})
+            if params:
+                torch._foreach_add_(list(params.values()),
+                                    list(unflatten(torch.where(good, updates, 0.0), params).values()))
+            state.opt_state = AdamState(torch.where(good, count, old.count),
+                                        unflatten(torch.where(good, new_mu, mu), params),
+                                        unflatten(torch.where(good, new_nu, nu), params))
+            for b, s in zip(buffers, saved):
+                b.copy_(torch.where(good, b, s))
         state.step += 1
         return state, loss.detach()
 
@@ -109,8 +125,13 @@ def fit(
     save_path: Optional[str] = None,
     pretrained_epochs: int = 0,
     max_val_batches: int = 50,
+    stall_timeout_s: Optional[float] = 600.0,
 ):
-    """Training loop.  Returns (state, history dict)."""
+    """Training loop.  Returns (state, history dict).
+
+    ``stall_timeout_s``: if no train step or validation completes for this
+    long, the process exits with ``utils.watchdog.STALL_EXIT_CODE`` for a
+    supervisor to restart it from the last checkpoint; None disables."""
     train_step = make_train_step(model, loss_fn, optimizer)
     eval_step = make_eval_step(model, loss_fn)
 
@@ -126,32 +147,37 @@ def fit(
             losses.append(float(eval_step(state, vb)))
         return float(np.mean(losses)) if losses else float("nan")
 
-    for epoch in range(n_epochs):
-        t0 = time.time()
-        epoch_losses = []
-        for it, batch in enumerate(iterate_batches(dataset, batch_size, shuffle=True, seed=seed + epoch,
-                                                   indices=tr_idx)):
-            state, loss = train_step(state, batch)
-            epoch_losses.append(float(loss))
-            if eval_every and (it + 1) % eval_every == 0:
-                logger.info("[%d: %d] train_loss=%.4g val_loss=%.4g",
-                            epoch + 1, it + 1, np.mean(epoch_losses[-eval_every:]), run_val())
+    # a context manager, so that the watchdog is disarmed on any exit
+    with StallWatchdog(stall_timeout_s, name=f"fit[{model_name}]") as dog:
+        for epoch in range(n_epochs):
+            t0 = time.time()
+            epoch_losses = []
+            for it, batch in enumerate(iterate_batches(dataset, batch_size, shuffle=True, seed=seed + epoch,
+                                                       indices=tr_idx)):
+                state, loss = train_step(state, batch)
+                epoch_losses.append(float(loss))
+                dog.beat()  # float(loss) waited for the step
+                if eval_every and (it + 1) % eval_every == 0:
+                    logger.info("[%d: %d] train_loss=%.4g val_loss=%.4g",
+                                epoch + 1, it + 1, np.mean(epoch_losses[-eval_every:]), run_val())
+                    dog.beat()
 
-        train_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
-        val_loss = run_val()
-        history["train_loss"].append(train_loss)
-        history["val_loss"].append(val_loss)
-        history["epoch_time"].append(time.time() - t0)
-        logger.info("epoch %d: train=%.4g val=%.4g (%.1fs)", epoch + 1, train_loss, val_loss,
-                    history["epoch_time"][-1])
+            train_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
+            val_loss = run_val()
+            dog.beat()
+            history["train_loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
+            history["epoch_time"].append(time.time() - t0)
+            logger.info("epoch %d: train=%.4g val=%.4g (%.1fs)", epoch + 1, train_loss, val_loss,
+                        history["epoch_time"][-1])
 
-        if val_loss < val_loss_min or (epoch + 1) % 5 == 0:
-            if val_loss < val_loss_min:
-                val_loss_min, epoch_min = val_loss, epoch
-                # the checkpoint epoch that checkpoint.best_epoch reads back
-                history["best_step"] = epoch + 1 + pretrained_epochs
-            if save_path:
-                save_checkpoint(save_path, model_name, epoch + 1 + pretrained_epochs, state)
+            if val_loss < val_loss_min or (epoch + 1) % 5 == 0:
+                if val_loss < val_loss_min:
+                    val_loss_min, epoch_min = val_loss, epoch
+                    # the checkpoint epoch that checkpoint.best_epoch reads back
+                    history["best_step"] = epoch + 1 + pretrained_epochs
+                if save_path:
+                    save_checkpoint(save_path, model_name, epoch + 1 + pretrained_epochs, state)
 
     history["best_epoch"] = epoch_min
     if save_path:

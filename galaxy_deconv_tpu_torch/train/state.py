@@ -7,16 +7,22 @@ can drop a bad update whole (see :func:`update_is_good`), as the JAX step does
 with ``jnp.where``.  Two details differ from torch's own tools:
 ``clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)``, where optax scales
 by ``max_norm / norm`` and only when ``norm >= max_norm``; and optax computes
-the bias corrections ``1 - b**count`` in float32.
+the bias corrections ``1 - b**count`` in float32.  The update count lives on
+the parameters' device, so that a step that is skipped keeps its count (as
+the JAX step reverts it) without the host reading the device.
+
+The arithmetic runs on every parameter at once, over the gradients and the
+moments concatenated into one flat vector each (:meth:`ClippedAdam.update_flat`):
+a few dozen launches a step whatever the number of tensors, where one set of
+launches per tensor would keep the host busier than the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -27,10 +33,10 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, which the JAX package t
 
 @dataclasses.dataclass
 class AdamState:
-    """optax's ``ScaleByAdamState``: the update count and the two moments,
-    keyed by parameter name."""
+    """optax's ``ScaleByAdamState``: the update count (a 0-d int32 tensor on the
+    parameters' device) and the two moments, keyed by parameter name."""
 
-    count: int
+    count: torch.Tensor
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
 
@@ -65,37 +71,76 @@ class ClippedAdam:
         if self.schedule == "cosine" and not (self.total_steps or 0) > 0:
             raise ValueError("schedule='cosine' needs total_steps > 0")
 
-    def learning_rate(self, count: int) -> float:
-        """The learning rate of the update made at ``count`` earlier updates."""
+    def learning_rate(self, count):
+        """The learning rate of the update made at ``count`` earlier updates:
+        a float for an int ``count``, a float32 tensor on its device for a
+        tensor (optax's float32 arithmetic)."""
         if self.schedule is None:
             return self.lr
         alpha = 0.1
-        cosine = 0.5 * (1 + math.cos(math.pi * min(count, self.total_steps) / self.total_steps))
+        if isinstance(count, torch.Tensor):
+            frac = count.clamp(max=self.total_steps).to(torch.float32) / self.total_steps
+            cosine = 0.5 * (1 + torch.cos(math.pi * frac))
+        else:
+            cosine = 0.5 * (1 + math.cos(math.pi * min(count, self.total_steps) / self.total_steps))
         return self.lr * ((1 - alpha) * cosine + alpha)
 
     def init(self, model: nn.Module) -> AdamState:
-        """Zero moments on the device and dtype of each trainable parameter."""
+        """Zero moments on the device and dtype of each trainable parameter,
+        the count 0 on the model's device."""
         params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-        return AdamState(0, {n: torch.zeros_like(p) for n, p in params.items()},
+        return AdamState(new_count(0, _model_device(model)), {n: torch.zeros_like(p) for n, p in params.items()},
                          {n: torch.zeros_like(p) for n, p in params.items()})
+
+    @torch.no_grad()
+    def update_flat(self, grads: torch.Tensor, count: torch.Tensor, mu: torch.Tensor,
+                    nu: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(updates, count, mu, nu) after one step on the flat gradient vector
+        ``grads`` (every parameter, in one order, as :func:`flatten` lays them
+        out), from the flat moments ``mu`` and ``nu`` and the count; new
+        tensors, the arguments left as they are."""
+        norm = torch.sqrt((grads * grads).sum())
+        g = torch.where(norm < self.clip_norm, grads, grads / norm * self.clip_norm)
+        power = (count + 1).to(torch.float32)
+        bc1 = 1 - torch.pow(B1, power)
+        bc2 = 1 - torch.pow(B2, power)
+        mu = (1 - B1) * g + B1 * mu
+        nu = (1 - B2) * (g * g) + B2 * nu
+        updates = -self.learning_rate(count) * (mu / bc1 / (torch.sqrt(nu / bc2) + EPS))
+        return updates, count + 1, mu, nu
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamState) -> tuple[dict, AdamState]:
         """(updates, new state) for ``grads``; the caller adds the updates to
         the parameters.  Neither ``grads`` nor ``state`` is modified."""
-        norm = torch.sqrt(sum((g * g).sum() for g in grads.values()) + torch.zeros(()))
-        unclipped = norm < self.clip_norm
-        count = state.count + 1
-        bc1 = float(1 - np.float32(B1) ** count)
-        bc2 = float(1 - np.float32(B2) ** count)
-        step = -self.learning_rate(state.count)
-        updates, mu, nu = {}, {}, {}
-        for name, g in grads.items():
-            g = torch.where(unclipped, g, g / norm * self.clip_norm)
-            mu[name] = (1 - B1) * g + B1 * state.mu[name]
-            nu[name] = (1 - B2) * (g * g) + B2 * state.nu[name]
-            updates[name] = step * (mu[name] / bc1 / (torch.sqrt(nu[name] / bc2) + EPS))
-        return updates, AdamState(count, mu, nu)
+        device = state.count.device
+        updates, count, mu, nu = self.update_flat(flatten(grads.values(), device), state.count,
+                                                  flatten((state.mu[n] for n in grads), device),
+                                                  flatten((state.nu[n] for n in grads), device))
+        return unflatten(updates, grads), AdamState(count, unflatten(mu, grads), unflatten(nu, grads))
+
+
+def flatten(tensors: Iterable[torch.Tensor], device) -> torch.Tensor:
+    """The tensors' entries end to end in one 1-d tensor (empty on ``device``
+    when there are none)."""
+    parts = [t.reshape(-1) for t in tensors]
+    return torch.cat(parts) if parts else torch.zeros(0, device=device)
+
+
+def unflatten(flat: torch.Tensor, like: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``flat`` cut back into views shaped as ``like``'s tensors, by name."""
+    parts = flat.split([t.numel() for t in like.values()]) if like else ()
+    return {n: v.view(t.shape) for (n, t), v in zip(like.items(), parts)}
+
+
+def new_count(value: int, device) -> torch.Tensor:
+    """An Adam update count: a 0-d int32 tensor on ``device``, written without
+    a copy from the host."""
+    return torch.full((), value, dtype=torch.int32, device=device)
+
+
+def _model_device(model: nn.Module) -> torch.device:
+    return next(iter(model.parameters()), torch.zeros(())).device
 
 
 def default_optimizer(lr: float = 2e-4, clip_norm: float = 1.0, schedule: Optional[str] = None,

@@ -1,5 +1,5 @@
 """Where the PyTorch port's flagship and the Poisson Unrolled_ADMM(8) spend
-their device time, serving and training.
+their device time, serving and training (on stored and on simulated batches).
 
     python3 scripts/profile_torch_pipeline.py
 
@@ -9,7 +9,10 @@ pipeline (UnrolledADMMGaussian(8), full width, weights from seed 0, then the
 shear estimate) at ``chip_smoke.py``'s batch, then ``FORWARDS`` calls under
 ``torch.profiler``; then one fp32 train step (MultiScale loss, clipped Adam)
 at ``chip_smoke.py``'s training batch on its synthetic stamps, two warm-up
-steps, then ``TRAIN_STEPS`` steps under the profiler; then the zoo's
+steps, then ``TRAIN_STEPS`` steps under the profiler; then one call of
+``TRAIN_STEPS`` online steps (``train/online.py``: the simulator renders each
+batch at the default optics, no host sync between the steps) after a
+warm-up call; then the zoo's
 Poisson ``Unrolled_ADMM(8)`` (ResUNet(64, 128, 256, 512) + SubNet(16), full
 width, seed 0, fp32 through ``make_apply_fn``) and the shear estimate on the
 same stamps and batch.  Prints for each the
@@ -36,7 +39,12 @@ from galaxy_deconv_tpu_torch.losses import MultiScaleLoss  # noqa: E402
 from galaxy_deconv_tpu_torch.metrics import estimate_shear  # noqa: E402
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian  # noqa: E402
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline  # noqa: E402
-from galaxy_deconv_tpu_torch.train import create_train_state, make_train_step  # noqa: E402
+from galaxy_deconv_tpu_torch.train import (  # noqa: E402
+    create_train_state,
+    make_online_train_scan,
+    make_train_step,
+)
+from galaxy_deconv_tpu_torch.train.online import TRAIN, step_seed  # noqa: E402
 
 FORWARDS = 3
 TRAIN_STEPS = 3
@@ -117,6 +125,20 @@ def profile_train_step() -> None:
           f"{host_ms(lambda: optimizer.update(grads, state.opt_state)):.3f}")
 
 
+def profile_online_step() -> None:
+    model = UnrolledADMMGaussian().to("cuda")
+    state, optimizer = create_train_state(model, 0)
+    scan = make_online_train_scan(model, MultiScaleLoss(), optimizer, TRAIN_BATCH, TRAIN_STEPS)
+    first = iter(range(0, 10**6, TRAIN_STEPS))
+
+    def call():
+        i = next(first)
+        return scan(state, [step_seed(0, TRAIN, i + j) for j in range(TRAIN_STEPS)])
+
+    call()
+    profile(f"online fp32, a call of {TRAIN_STEPS} steps", call, 1, TRAIN_BATCH * TRAIN_STEPS)
+
+
 def profile_zoo() -> None:
     apply_fn = make_apply_fn("Unrolled_ADMM(8)", device="cuda")
     obs, psf, alpha = (torch.as_tensor(a, device="cuda") for a in bench_inputs(BATCH))
@@ -138,6 +160,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         profile_dtype(dtype)
     profile_train_step()
+    profile_online_step()
     profile_zoo()
     return 0
 

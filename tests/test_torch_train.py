@@ -144,12 +144,15 @@ def test_model_names_match_jax(method, loss, kw):
 
 
 def test_build_loss():
+    # every name of the reference's command line builds (the values against
+    # JAX in tests/test_torch_losses.py); an unknown name raises
     assert build_loss("MultiScale") == MultiScaleLoss()
     assert build_loss("MultiScale", norm="L2").norm == "L2"
     assert build_loss("MSE") is mse_loss
-    for name in ("Shape", "BestEllipse", "MomentBasedLoss"):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1: the other losses"):
-            build_loss(name)
+    assert build_loss("Shape").psu.shape == (6, 17, 48, 48)
+    assert build_loss("Shape", fov_pixels=32).psu.shape == (6, 17, 32, 32)
+    assert len(build_loss("BestEllipse").ellipse_levels) == 17
+    assert build_loss("MomentBasedLoss", third_order_weight=0.5).third_order_weight == 0.5
     with pytest.raises(ValueError, match="unknown loss"):
         build_loss("Huber")
 
@@ -512,7 +515,18 @@ def test_cli_train_on_cpu(packed, tmp_path):
     assert next(state.model.parameters()).device.type == "cpu"
 
 
-def test_cli_refuses_unported_models(packed):
-    """ShapeNet trains with the Shape loss, which is not ported."""
-    with pytest.raises(SystemExit, match="Shape loss, which is not ported yet"):
-        cli.main(["train", "--model", "ShapeNet", "--data_path", str(packed), "--device", "cpu"])
+def test_cli_refuses_unported_models(packed, tmp_path):
+    """Every model of the command line trains now: ShapeNet, a Tikhonet with
+    the Shape loss, names its run ShapeNet_<filter> whatever --loss says."""
+    save = tmp_path / "models"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small tensors: OpenMP teams stall beside the tier-1 run's other workers
+    try:
+        state, hist = cli.main(["train", "--model", "ShapeNet", "--data_path", str(packed), "--model_save_path",
+                                str(save), "--n_epochs", "1", "--batch_size", "8", "--loss", "MSE", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert (save / "ShapeNet_Laplacian_1epochs" / "train_state.pt").is_file()
+    assert (save / "ShapeNet_Laplacian_history.json").is_file() and state.step == 2
+    assert np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+    assert type(state.model).__name__ == "Tikhonet"
