@@ -78,7 +78,21 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              ``make_indexed_multi_step`` against 4 single steps, ms per step;
              (c) one epoch of ``cli train --model ShapeNet`` (the Shape loss,
              no solve launch, its checkpoint), and the Shape, BestEllipse and
-             moment losses and their gradients on the card against the CPU.
+             moment losses and their gradients on the card against the CPU;
+11. data parallel   two ``torchrun`` calls, each rank this script run as
+             ``chip_smoke.py --rank ...``: at world size 1 over NCCL, (a)
+             ``cli train --n_devices 1`` for one epoch of phase 6's stamps,
+             its per-step losses against phase 6's epoch (both under
+             deterministic algorithms), the launches, the history, the
+             checkpoint and the ms per step, then (c) ``cli test
+             --n_devices 1`` of the flagship on phase 8's tree; over two gloo
+             ranks sharing the card, (b) 3 steps of ``make_train_step(mesh)``
+             on shards of 16 against one process on the global 32 (first
+             loss, averaged gradient, running statistics, the replicas bit
+             for bit, 8 + 8 solve launches per step per rank, the flat
+             gradient's all-reduce timed), then (c) the same sweep at a
+             global batch of 1,024; each sweep's rows against phase 8's, its
+             gal/s and launches.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -92,8 +106,10 @@ import contextlib
 import ctypes
 import functools
 import json
+import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -115,6 +131,7 @@ from galaxy_deconv_tpu_torch.ops import x_update as xu
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline
 from galaxy_deconv_tpu_torch.train import (
     create_train_state,
+    default_optimizer,
     fit_device_resident,
     make_indexed_multi_step,
     make_indexed_train_step,
@@ -213,6 +230,22 @@ LOSS_VALUE_REL_TOL = 1e-5
 BEST_ELLIPSE_VALUE_REL_TOL = 5e-5
 LOSS_GRAD_TOL = 1e-4
 ONLINE_STEPS, ONLINE_PER_CALL, ONLINE_VAL_EVERY, ONLINE_VAL_BATCHES = 20, 10, 10, 2
+# Phase 11, data parallel.  Limits fixed before the first reading on the card: the world-1 epoch's per-step
+# losses against phase 6's epoch, relative to the largest (both under deterministic algorithms; a world of one
+# rank takes no BatchNorm collective, so only the flat gradient's all-reduce differs); two gloo ranks of 16
+# against one process on the global 32 from the same weights (deterministic algorithms on both sides): the first
+# loss at DP_LOSS_REL_TOL, the ranks' averaged first gradient at GRAD_REL_TOL (the zero-gradient biases at
+# ZERO_GRAD_TOL of the largest), the BatchNorm running statistics after it at DP_STATS_TOL of each tensor's
+# largest entry, the two replicas bit for bit after DP_STEPS steps.  The later steps are printed, not held: the
+# first gradients differ by rounding (~4e-3 of a tensor's largest entry, as the card's against the CPU's), and
+# Adam moves every entry whose sign that flips by 2 lr.  The mesh sweeps' shear rows against phase 8's
+# single-device rows at DP_SHEAR_TOL * (1 + |g|), the moments' limit (the same card, each rank's shard of
+# phase 8's batch shape).
+DP_LOSS_REL_TOL = 1e-5
+DP_STATS_TOL = 1e-5
+DP_SHEAR_TOL = MOMENT_REL_TOL
+DP_STEPS = 3
+DP_TIMEOUT_S = 300  # each torchrun call, its ranks' start-up included
 
 
 def bench_inputs(B: int, seed: int = 0):
@@ -638,11 +671,13 @@ def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP[
         save = pathlib.Path(tmp) / "models"
         ds = GalaxyDataset(root)
 
-        # (a) the command line, one epoch at full width
+        # (a) the command line, one epoch at full width, each step's loss and ms recorded for phase 11 (which
+        # holds its world-1 epoch to these losses, so both run cuDNN's deterministic algorithms)
         xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
-        state, hist = cli.main(["train", "--data_path", str(root), "--model_save_path", str(save), "--n_epochs", "1",
-                                "--batch_size", str(B), "--n_iters", str(n_iters), "--seed", "0",
-                                "--device", device.type])
+        with recording_steps() as epoch_steps, deterministic():
+            state, hist = cli.main(["train", "--data_path", str(root), "--model_save_path", str(save), "--n_epochs",
+                                    "1", "--batch_size", str(B), "--n_iters", str(n_iters), "--seed", "0",
+                                    "--device", device.type])
         _sync(device)
         fwd, bwd = xu.x_update_solve.launches, xu.x_update_solve_backward.launches
         tr_idx, va_idx = train_val_indices(n_stamps, 0.9, 0)
@@ -697,7 +732,7 @@ def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP[
         raise AssertionError("the loss did not fall over steps on one batch")
     step_ms = float(np.median(times[n_warm:])) * 1e3
     return {"forward_launches": fwd, "backward_launches": bwd, "step_ms": step_ms, "gal_per_s": B / step_ms * 1e3,
-            "batch": B, "timed_steps": len(times) - n_warm}
+            "batch": B, "timed_steps": len(times) - n_warm, "epoch_steps": epoch_steps}
 
 
 def phase_generate(device, root: pathlib.Path, n_train=256, n_test=1024, pupil_n=512, chunk=256, errs=PSF_ERRS,
@@ -1191,6 +1226,268 @@ def phase_shapenet_and_losses(device, card: str, root: pathlib.Path, save: pathl
     return {"readings": readings, "shapenet_epoch_s": hist["epoch_time"][0]}
 
 
+@contextlib.contextmanager
+def recording_steps():
+    """``fit``'s train step wrapped: each call's loss (waited for) and host ms,
+    call to loss, appended to the list the block yields."""
+    from galaxy_deconv_tpu_torch.train import loop
+
+    record, make = [], loop.make_train_step
+
+    def make_recorded(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def recorded(state, batch):
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            record.append((float(loss), (time.perf_counter() - t0) * 1e3))
+            return state, loss
+
+        return recorded
+
+    with mock.patch.object(loop, "make_train_step", make_recorded):
+        yield record
+
+
+def torchrun(n: int, out: pathlib.Path, backend: str, device: str, jobs: list,
+             timeout: float = DP_TIMEOUT_S) -> list[list[dict]]:
+    """``torchrun --standalone --nproc_per_node n chip_smoke.py --rank out
+    backend device job [--then job ...]`` (:func:`rank_main` in each rank);
+    each rank's records, one per job, in rank order.  The launcher and its
+    ranks are one process group, killed whole at ``timeout``."""
+    out.mkdir(parents=True, exist_ok=True)
+    argv = [a for k, job in enumerate(jobs) for a in (["--then"] if k else []) + list(job)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
+           str(pathlib.Path(__file__).resolve()), "--rank", str(out), backend, device, *map(str, argv)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd)} did not finish in {timeout} s")
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+def rank_main(argv: list) -> int:
+    """One rank of phase 11, started by :func:`torchrun`: ``OUT BACKEND DEVICE
+    JOB [--then JOB ...]``.  BACKEND ``gloo`` joins the group over gloo on
+    DEVICE first (two ranks sharing one card), ``default`` leaves the group to
+    the commands.  A JOB is ``cli <cli arguments>`` (``cli.main``, ``fit``'s
+    steps recorded), ``cli-det <cli arguments>`` (the same under
+    deterministic algorithms) or ``step ROOT B N_ITERS FEATURES N_STEPS``
+    (:func:`dp_steps` on this rank's shard, then the flat gradient's
+    all-reduce timed alone).  The rank's records go to OUT/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from galaxy_deconv_tpu_torch.parallel import initialize_distributed, make_mesh, shard_batch
+
+    out, backend, device = pathlib.Path(argv[0]), argv[1], argv[2]
+    jobs, job = [], []
+    for a in argv[3:]:
+        if a == "--then":
+            jobs, job = jobs + [job], []
+        else:
+            job.append(a)
+    jobs.append(job)
+    if backend != "default":
+        initialize_distributed(device, backend=backend)
+    records = []
+    for kind, *rest in jobs:
+        xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+        if kind in ("cli", "cli-det"):
+            t0 = time.perf_counter()
+            with recording_steps() as steps, (deterministic() if kind == "cli-det" else contextlib.nullcontext()):
+                cli.main(rest)
+            _sync(torch.device(device))
+            records.append({"steps": steps, "seconds": time.perf_counter() - t0,
+                            "launches": (xu.x_update_solve.launches, xu.x_update_solve_backward.launches)})
+            continue
+        root, B, n_iters, features, n_steps = rest[0], int(rest[1]), int(rest[2]), rest[3], int(rest[4])
+        features = tuple(int(f) for f in features.split(","))
+        mesh = make_mesh(None, device)
+        batch = shard_batch(GalaxyDataset(root).batch(np.arange(B)), mesh)
+        record = dp_steps(mesh.device, batch, n_iters, features, n_steps, mesh)
+        # the all-reduce of the flat gradient alone: median of 5 after one
+        flat = torch.zeros(sum(p.numel() for p in UnrolledADMMGaussian(n_iters=n_iters, features=features)
+                               .parameters()), device=mesh.device)
+        times = []
+        for _ in range(6):
+            dist.barrier()
+            _sync(mesh.device)
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            _sync(mesh.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        records.append({**record, "all_reduce_ms": float(np.median(times[1:])), "all_reduce_bytes": flat.numel() * 4})
+    rank = int(os.environ["RANK"])
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    torch.save(records, out / f"rank{rank}.pt")
+    return 0
+
+
+def dp_steps(device, batch, n_iters, features, n_steps, mesh=None) -> dict:
+    """``n_steps`` train steps of a seed-0 model on one batch (this rank's
+    shard with ``mesh``), deterministic algorithms on: each step's loss,
+    launches and ms; after the first, the gradient (averaged over the ranks
+    with ``mesh``) and the BatchNorm statistics; the final parameters."""
+    import torch.distributed as dist
+
+    model, state, optimizer = _fresh(device, n_iters, features)
+    step = make_train_step(model, MultiScaleLoss(), optimizer, mesh)
+    losses, launches, ms, grads, stats = [], [], [], None, None
+    with deterministic():
+        for k in range(n_steps):
+            xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+            _sync(device)
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append((xu.x_update_solve.launches, xu.x_update_solve_backward.launches))
+            if k == 0:
+                grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                if mesh is not None and mesh.group is not None:
+                    for g in grads.values():
+                        dist.all_reduce(g, group=mesh.group)
+                        g /= mesh.world_size
+                grads = {n: g.cpu() for n, g in grads.items()}
+                stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers() if "running_" in n}
+    return {"losses": losses, "launches": launches, "ms": ms, "grads": grads, "stats": stats,
+            "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()}}
+
+
+def _rel(got: dict, want: dict) -> float:
+    """The largest max |got - want| / max |want| over the tensors of ``want``."""
+    return max(float((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30)) for n, w in want.items())
+
+
+def _shear_rows_err(res: pathlib.Path, ref: pathlib.Path, method: str, snrs) -> float:
+    got, want = (json.loads((d / method / "results.json").read_text()) for d in (res, ref))
+    errs = []
+    for snr in map(str, snrs):
+        g, w = np.asarray(got[snr]["rec_shear"]), np.asarray(want[snr]["rec_shear"])
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{res}/{method} snr {snr}: rec_shear {g.shape} against {w.shape}, or not finite")
+        errs.append(float((np.abs(g - w) / (1 + np.abs(w))).max()))
+    return max(errs)
+
+
+def phase_data_parallel(device, card: str, eval_root: pathlib.Path, ref: pathlib.Path, work: pathlib.Path,
+                        phase6: dict, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP["n_iters"],
+                        features=FLAGSHIP["features"], n_steps=DP_STEPS, zero_tol=ZERO_GRAD_TOL,
+                        method="Unrolled_ADMM_Gaussian(8)", n_gal=1024, batch=EVAL_BATCH, snrs=SNRS) -> dict:
+    """Phase 11, in two launcher calls.  World size 1 over the device's
+    default backend (NCCL on the card): (a) ``cli train`` for one epoch on
+    phase 6's stamps against phase 6's epoch (both under deterministic
+    algorithms), then (c) ``cli test --test shear`` of ``method`` on phase 8's
+    tree ``eval_root`` against phase 8's single-device rows in ``ref``.  Two
+    ranks over gloo on one device: (b) ``make_train_step(mesh=...)`` on
+    shards of B / 2 against one process's steps on the global B, then (c) the
+    same sweep at a global batch of two of phase 8's (each rank's shard has
+    phase 8's shape)."""
+    root = write_dataset(work / "data", n_stamps)
+    save = work / "models_dp"
+    name = get_model_name("Unrolled_ADMM", "MultiScale", n_iters=n_iters)
+    dev = f"{device.type}:0" if device.type == "cuda" else "cpu"
+
+    def sweep(world, global_batch):
+        return ["cli", "test", "--n_devices", world, "--data_path", eval_root, "--result_path",
+                work / f"results_world{world}", "--methods", method, "--test", "shear", "--n_gal", n_gal,
+                "--eval_batch_size", global_batch, "--snrs", *snrs, "--device", dev if world > 1 else device.type]
+
+    t0 = time.perf_counter()
+    ((a, c1),) = torchrun(1, work / "world1", "default", device.type, [
+        ["cli-det", "train", "--n_devices", 1, "--data_path", root, "--model_save_path", save, "--n_epochs", 1,
+         "--batch_size", B, "--n_iters", n_iters, "--seed", 0, "--device", device.type], sweep(1, batch)])
+    world1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = torchrun(2, work / "world2", "gloo", dev, [
+        ["step", root, B, n_iters, ",".join(map(str, features)), n_steps], sweep(2, 2 * batch)])
+    world2_s = time.perf_counter() - t0
+    print(f"data parallel ({device.type}, {card}): torchrun --nproc_per_node 1 (default backend, (a) then (c)) "
+          f"{world1_s:.1f} s wall, --nproc_per_node 2 (gloo on {dev}, (b) then (c)) {world2_s:.1f} s wall, "
+          "torchrun and each rank's start-up included")
+
+    # (a) the world-1 epoch against phase 6's
+    hist = json.loads((save / f"{name}_history.json").read_text())
+    restored = restore_checkpoint(save, name, 1)
+    tr_idx, va_idx = train_val_indices(n_stamps, 0.9, 0)
+    steps, val_batches = len(tr_idx) // B, -(-len(va_idx) // B)
+    want = (n_iters * (steps + val_batches), n_iters * steps) if device.type == "cuda" else (0, 0)
+    losses, ms = np.array([x for x, _ in a["steps"]]), np.array([t for _, t in a["steps"]])
+    ref6 = np.array([x for x, _ in phase6["epoch_steps"]])
+    ref6_ms = np.array([t for _, t in phase6["epoch_steps"]])
+    loss_rel = float(np.abs(losses - ref6).max() / np.abs(ref6).max()) if losses.shape == ref6.shape else float("inf")
+    print(f"data parallel (a) ({device.type}, {card}): cli train --n_devices 1 under torchrun, one epoch of "
+          f"{len(losses)} steps at B={B}, deterministic algorithms: per-step loss against phase 6's epoch max rel err "
+          f"{loss_rel:.3e} (tol {DP_LOSS_REL_TOL}); train_loss {hist['train_loss'][0]:.6g}, val_loss "
+          f"{hist['val_loss'][0]:.6g}; solve launches forward {a['launches'][0]}, backward {a['launches'][1]}; ms per "
+          f"step (host, call to loss; steps 2-{len(ms)}) median {np.median(ms[1:]):.2f} against phase 6's epoch "
+          f"{np.median(ref6_ms[1:]):.2f} (phase 6 (d), not deterministic, {phase6['step_ms']:.2f}); checkpoint step "
+          f"{restored['step']}")
+    if (len(losses) != steps or restored["step"] != steps or restored["opt_state"]["count"] != steps
+            or not np.isfinite(hist["train_loss"] + hist["val_loss"] + losses.tolist()).all()):
+        raise AssertionError(f"torchrun cli train: {len(losses)} steps, history {hist}, checkpoint step "
+                             f"{restored['step']}; expected {steps} steps")
+    if tuple(a["launches"]) != want:
+        raise AssertionError(f"torchrun cli train: solve launches {a['launches']}, expected {want}")
+    if loss_rel > DP_LOSS_REL_TOL:
+        raise AssertionError("the world-1 data-parallel epoch disagrees with phase 6's")
+
+    # (b) two ranks against one process on the global batch
+    one = dp_steps(device, GalaxyDataset(root).batch(np.arange(B)), n_iters, features, n_steps)
+    r0 = ranks[0][0]
+    first_rel = abs(r0["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    later = [abs(x - y) / abs(y) for x, y in zip(r0["losses"][1:], one["losses"][1:])]
+    _, grad_rel, worst, zero = grad_errors(0.0, r0["grads"], 1.0, one["grads"])
+    stats_rel = _rel(r0["stats"], one["stats"])
+    param_lr = max(float((r0["params"][n] - p).abs().max()) / default_optimizer().lr
+                   for n, p in one["params"].items() if not _zero_grad_param(n))
+    replicas = all(torch.equal(ranks[1][0]["params"][n], p) for n, p in r0["params"].items())
+    per_step = (n_iters, n_iters) if device.type == "cuda" else (0, 0)
+    launches_ok = all(tuple(x) == per_step for r in ranks for x in r[0]["launches"])
+    print(f"data parallel (b) ({device.type}, {card}): 2 gloo ranks of {B // 2} on {dev} against one process on "
+          f"B={B}, {n_steps} steps from seed-0 weights, deterministic algorithms: first loss rel err {first_rel:.3e} "
+          f"(tol {DP_LOSS_REL_TOL}); the ranks' averaged first gradient worst rel err {grad_rel:.3e} in {worst} (tol "
+          f"{GRAD_REL_TOL}), zero-gradient biases {zero:.3e} of the largest (tol {zero_tol}); running statistics "
+          f"after it max rel err {stats_rel:.3e} (tol {DP_STATS_TOL}); the two replicas bit-identical: {replicas}; "
+          f"solve launches per step per rank {[[tuple(x) for x in r[0]['launches']] for r in ranks]}; not held (Adam "
+          f"moves an entry whose gradient the two summation orders round to opposite signs by 2 lr): later losses' "
+          f"rel err " + ", ".join(f"{x:.3e}" for x in later) + f", parameters after {n_steps} steps {param_lr:.3e} lr "
+          f"apart; ms per step (steps 2-{n_steps}) ranks {np.median(r0['ms'][1:]):.2f}, one process "
+          f"{np.median(one['ms'][1:]):.2f}; gloo all-reduce of the {r0['all_reduce_bytes'] / 1e6:.2f} MB flat "
+          f"gradient {r0['all_reduce_ms']:.2f} ms")
+    if not (first_rel <= DP_LOSS_REL_TOL and grad_rel <= GRAD_REL_TOL and zero <= zero_tol
+            and stats_rel <= DP_STATS_TOL and replicas and launches_ok):
+        raise AssertionError("two data-parallel ranks disagree with one process on the global batch")
+
+    # (c) the mesh sweeps against phase 8's single-device rows
+    n_iters_m = int(method.rsplit("(", 1)[1].rstrip(")"))
+    sweeps = {}
+    for world, records, global_batch in ((1, [c1], batch), (2, [r[1] for r in ranks], 2 * batch)):
+        err = _shear_rows_err(work / f"results_world{world}", ref, method, snrs)
+        want_launches = n_iters_m * -(-n_gal // global_batch) * len(snrs) if device.type == "cuda" else 0
+        launches = [r["launches"][0] for r in records]
+        rate = n_gal * len(snrs) / max(r["seconds"] for r in records)
+        print(f"data parallel (c) ({device.type}, {card}): cli test --n_devices {world} under torchrun "
+              f"({'gloo on ' + dev if world > 1 else 'default backend'}), {method} at global B={global_batch} over "
+              f"{n_gal} galaxies x {len(snrs)} SNRs: rec_shear against phase 8's single-device rows max |dg| / "
+              f"(1 + |g|) {err:.3e} (tol {DP_SHEAR_TOL}); {rate:.1f} gal/s (host clock around the command in the "
+              f"slowest rank, model build included); solve launches per rank {launches}")
+        if err > DP_SHEAR_TOL or launches != [want_launches] * world:
+            raise AssertionError(f"the {world}-rank sweep disagrees with phase 8's, or launched {launches} "
+                                 f"(expected {want_launches} per rank)")
+        sweeps[world] = {"gal_per_s": rate, "launches": launches, "err": err}
+    return {"launches": tuple(a["launches"]), "b_launches": [tuple(map(sum, zip(*r[0]["launches"]))) for r in ranks],
+            "sweeps": sweeps, "step_ms": float(np.median(ms[1:])), "phase6_epoch_ms": float(np.median(ref6_ms[1:])),
+            "gloo_step_ms": float(np.median(r0["ms"][1:])), "one_step_ms": float(np.median(one["ms"][1:])),
+            "all_reduce_ms": r0["all_reduce_ms"], "wall_s": world1_s + world2_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -1218,6 +1515,8 @@ def main() -> int:
         gen = phase_generate(device, pathlib.Path(tmp) / "data")
         test = phase_test(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results", card)
         zoo = phase_zoo(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "zoo", card)
+        dp = phase_data_parallel(device, card, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results",
+                                 pathlib.Path(tmp) / "dp", train)
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
           f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
           "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
@@ -1231,11 +1530,19 @@ def main() -> int:
           f"{online['peak_gib']:.2f} GiB); device-resident {resident['multi_ms']:.2f} ms per step in fused calls of "
           f"4 (median of 5), {resident['epoch_step_ms']:.2f} ms per step over its epoch with validation; the disk "
           f"step of phase 6 {train['step_ms']:.2f} ms; ShapeNet's epoch {shapes['shapenet_epoch_s']:.2f} s")
+    print(f"data parallel ({card}): fp32, TF32 off, deterministic algorithms: cli train at world 1 "
+          f"{dp['step_ms']:.2f} ms per step against phase 6's epoch {dp['phase6_epoch_ms']:.2f}; two gloo ranks on one "
+          f"card {dp['gloo_step_ms']:.2f} ms per step against one process's {dp['one_step_ms']:.2f} (the all-reduce of "
+          f"the flat gradient {dp['all_reduce_ms']:.2f} ms); the flagship's shear sweep at world 1 "
+          f"{dp['sweeps'][1]['gal_per_s']:.1f} gal/s, over two gloo ranks {dp['sweeps'][2]['gal_per_s']:.1f}; phase 11 "
+          f"{dp['wall_s']:.1f} s in its two launcher calls")
     # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training, the flagship's eval sweeps,
-    # the online run and the device-resident epoch
+    # the online run, the device-resident epoch, and phase 11's data-parallel epoch, steps and sweeps (each rank's)
     kernel["launches"] = (fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
-                          + online["forward_launches"] + resident["forward_launches"])
-    kernel_bwd["launches"] = train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
+                          + online["forward_launches"] + resident["forward_launches"] + dp["launches"][0]
+                          + sum(f for f, _ in dp["b_launches"]) + sum(sum(r["launches"]) for r in dp["sweeps"].values()))
+    kernel_bwd["launches"] = (train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
+                              + dp["launches"][1] + sum(b for _, b in dp["b_launches"]))
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -1245,4 +1552,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

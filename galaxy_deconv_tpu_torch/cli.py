@@ -4,6 +4,7 @@
     python -m galaxy_deconv_tpu_torch train --data_path DIR [--model Tikhonet|ShapeNet|ResUNet] [--device cpu] ...
     python -m galaxy_deconv_tpu_torch train --online --n_steps N [--steps_per_call K] [--device cpu] ...
     python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--methods ...] [--device cpu] ...
+    torchrun --nproc_per_node N -m galaxy_deconv_tpu_torch train|test --n_devices N ...
 
 ``generate`` simulates a benchmark dataset, or with ``--task Denoise`` the
 denoising task's (the reference's ``generate_data.py``); ``train`` trains the
@@ -15,12 +16,19 @@ TF32 off, and checkpoints into ``--model_save_path`` as the reference's
 instead of reading a dataset (``train/online.py``); ``test`` runs the evaluation sweeps of
 the reference's ``test.py`` and ``test_psf.py`` over a method list of any
 registry names.  Each runs on the card unless ``--device cpu``.
+
+``train`` (from a dataset) and ``test`` run data parallel under a launcher
+that starts one process per device, as the JAX CLI runs them on a mesh of
+every device: each joins the process group (``parallel.initialize_distributed``:
+NCCL on the card, gloo on the CPU) and builds the mesh of ``--n_devices``
+ranks, which must be the world size.  ``train --online`` runs on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from galaxy_deconv_tpu_torch.config import add_args, from_namespace
 from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset, generate_dataset_denoise
@@ -28,6 +36,7 @@ from galaxy_deconv_tpu_torch.data.simulate import simulate_batch, simulate_batch
 from galaxy_deconv_tpu_torch.eval import DEFAULT_PSF_ERRS, run_psf_error_test, run_shear_test, run_time_test
 from galaxy_deconv_tpu_torch.losses import build_loss, get_model_name
 from galaxy_deconv_tpu_torch.models import ResUNetDenoiser, Tikhonet, UnrolledADMMGaussian
+from galaxy_deconv_tpu_torch.parallel import initialize_distributed, make_mesh
 from galaxy_deconv_tpu_torch.train import create_train_state, default_optimizer, fit, restore_checkpoint
 from galaxy_deconv_tpu_torch.train.checkpoint import best_epoch, unpack_variables
 from galaxy_deconv_tpu_torch.train.online import fit_online
@@ -47,7 +56,14 @@ def _cmd_generate(ns):
 
 def _cmd_train(ns):
     cfg = from_namespace(ns)
-    device = resolve_device(cfg.device)
+    if ns.online:  # JAX's fit_online takes no mesh
+        if cfg.n_devices not in (None, 1) or int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            raise SystemExit("train --online runs on one device, in one process")
+        device, mesh = resolve_device(cfg.device), None
+    else:
+        initialize_distributed(cfg.device)
+        mesh = make_mesh(cfg.n_devices, cfg.device)
+        device = mesh.device
     model_name = get_model_name(cfg.model, cfg.loss, filter=cfg.filter, n_iters=cfg.n_iters, llh=cfg.llh,
                                 remove_subnet=cfg.remove_subnet)
     logging.info("training %s on %s (%s)", model_name, "simulated batches" if ns.online else cfg.data_path, device)
@@ -83,7 +99,7 @@ def _cmd_train(ns):
     # fit's train and eval steps run with TF32 off
     state, hist = fit(model, state, optimizer, loss_fn, ds, n_epochs=cfg.n_epochs, batch_size=cfg.batch_size,
                       train_val_split=cfg.train_val_split, seed=cfg.seed, model_name=model_name,
-                      save_path=cfg.model_save_path, pretrained_epochs=cfg.pretrained_epochs)
+                      save_path=cfg.model_save_path, mesh=mesh, pretrained_epochs=cfg.pretrained_epochs)
     print(f"final train_loss={hist['train_loss'][-1]:.5g} val_loss={hist['val_loss'][-1]:.5g}")
     return state, hist
 
@@ -101,10 +117,8 @@ DEFAULT_METHODS = (
 
 def _cmd_test(ns):
     cfg = from_namespace(ns)
-    if cfg.n_devices not in (None, 1):
-        raise SystemExit(f"--n_devices {cfg.n_devices}: the port evaluates on one device (the mesh path is "
-                         "ROADMAP Queue 1: the rest, DDP)")
-    resolve_device(cfg.device)
+    initialize_distributed(cfg.device)
+    mesh = make_mesh(cfg.n_devices, cfg.device)
     methods = ns.methods or DEFAULT_METHODS
 
     state_dict = None
@@ -114,7 +128,8 @@ def _cmd_test(ns):
         state_dict = unpack_variables(restore_checkpoint(cfg.model_save_path, ns.checkpoint_name, ep))
         logging.info("loaded %s epoch %s", ns.checkpoint_name, ep)
 
-    common = dict(n_gal=cfg.n_gal, batch_size=cfg.eval_batch_size, state_dict=state_dict, device=cfg.device)
+    # a process alone takes the single-device bulk path; ranks of a group, the per-batch mesh path
+    common = dict(n_gal=cfg.n_gal, batch_size=cfg.eval_batch_size, state_dict=state_dict, mesh=mesh)
     results = {}
     for method in methods:
         if cfg.test == "shear":

@@ -41,7 +41,7 @@ class RunConfig:
     n_gal: int = 10000
     snrs: Sequence[int] = (20, 40, 60, 80, 100, 150, 200)
     eval_batch_size: int = 512
-    n_devices: Optional[int] = None  # one device: only None or 1
+    n_devices: Optional[int] = None  # the devices of the data mesh, one process each; None: every rank
     seed: int = 42
     device: str = "cuda"
 
@@ -68,7 +68,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--test", type=str, default=d.test, choices=["shear", "time", "psf_shear", "psf_fwhm"])
     parser.add_argument("--n_gal", type=int, default=d.n_gal)
     parser.add_argument("--snrs", type=int, nargs="+", default=list(d.snrs))
-    parser.add_argument("--n_devices", type=int, default=None, help="1 (or unset): the port runs on one device")
+    parser.add_argument("--n_devices", type=int, default=None,
+                        help="devices of the data mesh, one process each (torchrun --nproc_per_node N); "
+                             "must equal the world size; unset: every rank")
     parser.add_argument("--eval_batch_size", type=int, default=d.eval_batch_size)
     parser.add_argument("--seed", type=int, default=d.seed)
     parser.add_argument("--device", type=str, default=d.device, help="cuda (default) or cpu")

@@ -70,16 +70,21 @@ class GalaxyDataset:
 
 
 def iterate_batches(ds: GalaxyDataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                    drop_last: bool = True, indices: Optional[np.ndarray] = None) -> Iterator[dict]:
+                    drop_last: bool = True, indices: Optional[np.ndarray] = None, process_index: int = 0,
+                    process_count: int = 1) -> Iterator[dict]:
     """Yield batch dicts over ``indices`` (default: all), shuffled by
     ``np.random.default_rng(seed)`` when ``shuffle``.
 
     As in the JAX reader, a numpy ``indices`` array is shuffled in place, so
     the epochs of ``fit`` compound their shuffles: the same batches as JAX's.
+    With ``process_count`` > 1 this process reads the disjoint stride
+    ``idx[process_index::process_count]`` of the (shuffled) indices, in
+    batches of ``batch_size``, as the JAX reader splits them over hosts.
     """
     idx = np.arange(len(ds)) if indices is None else np.asarray(indices)
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
+    idx = idx[process_index::process_count]
     n = len(idx)
     stop = n - (n % batch_size) if drop_last else n
     for s in range(0, stop, batch_size):

@@ -8,11 +8,14 @@
      "time": [seconds, n_gal], "time_spread": [min, max],
      "meta": {"data_root": ..., "n_gal": ...}}
 
-and ``results_psf_{shear,fwhm}_err.json`` keyed by the error level.  Every
-sweep runs on one device (``device``, the card unless ``"cpu"``): one
-host-to-device copy per field, batches sliced on the device, one fetch at the
-end.  The JAX package's per-batch mesh path is not ported (ROADMAP Queue 1:
-the rest, DDP).
+and ``results_psf_{shear,fwhm}_err.json`` keyed by the error level.  A
+sweep on one device (``device``, the card unless ``"cpu"``) makes one
+host-to-device copy per field, slices the batches on the device and fetches
+once at the end.  Given a ``mesh`` with a process group
+(``parallel/mesh.py``), the shear, time and PSF-error sweeps take the JAX
+package's per-batch mesh path instead: each rank runs its contiguous shard of
+every batch (a ragged last batch padded by repeating its last galaxy), the
+ranks' shear rows are gathered in rank order, and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from galaxy_deconv_tpu_torch.data.dataset import GalaxyDataset
 from galaxy_deconv_tpu_torch.metrics import estimate_shear, psnr
 from galaxy_deconv_tpu_torch.models import build_model
+from galaxy_deconv_tpu_torch.parallel import Mesh, all_gather_rows, barrier, is_writer, shard_rows
 from galaxy_deconv_tpu_torch.pipeline import init_parameters
 from galaxy_deconv_tpu_torch.utils.device import fp32_only, resolve_device
 
@@ -146,55 +150,99 @@ def _rec_shear_bulk(apply_fn, ds: GalaxyDataset, n: int, batch_size: int, method
     return torch.cat(shears).cpu().numpy()[:n]
 
 
+@torch.inference_mode()
+def _rec_shear_mesh(apply_fn, ds: GalaxyDataset, n: int, batch_size: int, method: str, mesh: Mesh) -> np.ndarray:
+    """(n, 3) shears of ``method`` over the first ``n`` galaxies of ``ds``, on
+    every rank: batch by batch, this rank's contiguous shard of each
+    (``batch_size`` a multiple of the world size), the shards' rows gathered
+    in rank order; a ragged last batch is padded by repeating its last galaxy
+    and the surplus rows dropped."""
+    rows = shard_rows(batch_size, mesh)
+    shears = []
+    for s in range(0, n, batch_size):
+        idx = np.arange(s, min(s + batch_size, n))
+        take = idx.shape[0]
+        idx = np.concatenate([idx, np.full(batch_size - take, idx[-1])])
+        b = ds.batch(idx[rows])
+        ob, ps, al = (torch.from_numpy(b[k]).to(mesh.device) for k in ("obs", "psf", "alpha"))
+        if method == "FPFS":
+            g = estimate_shear(ob, ps, deconv_psf=True)
+        else:
+            g = estimate_shear(ob if method == "No_Deconv" else apply_fn(ob, ps, al))
+        shears.append(all_gather_rows(g, mesh)[:take])
+    return torch.cat(shears).cpu().numpy()
+
+
+def _rec_shear(apply_fn, ds: GalaxyDataset, n: int, batch_size: int, method: str, device, mesh: Optional[Mesh],
+               cache=None, cache_fields=()) -> np.ndarray:
+    """The mesh path given a mesh with a process group, else the bulk path."""
+    if mesh is None or mesh.group is None:
+        return _rec_shear_bulk(apply_fn, ds, n, batch_size, method, device, cache=cache, cache_fields=cache_fields)
+    return _rec_shear_mesh(apply_fn, ds, n, batch_size, method, mesh)
+
+
+def _write(path: pathlib.Path, update: dict, data_root, mesh: Optional[Mesh]) -> None:
+    """:func:`_merge_write` on the writing rank, every rank waiting for it."""
+    if is_writer(mesh):
+        _merge_write(path, update, data_root=data_root)
+    barrier(mesh)
+
+
 def run_shear_test(method: str, data_root, result_path, snrs: Sequence[int] = (20, 40, 60, 80, 100, 150, 200),
                    n_gal: int = 10000, batch_size: int = 512, state_dict=None, result_name: Optional[str] = None,
-                   device="cuda", **model_kwargs) -> dict:
+                   device="cuda", mesh: Optional[Mesh] = None, **model_kwargs) -> dict:
     """Shear-recovery sweep over the fixed-SNR test variants (reference
     test.py:20-107, batched); No_Deconv also writes the ground truth's shear.
-    ``result_name`` names the output directory instead of ``method``."""
+    ``result_name`` names the output directory instead of ``method``; with
+    ``mesh``, ``device`` is the mesh's."""
+    device = device if mesh is None else mesh.device
     apply_fn = _apply_fn(method, state_dict, device, model_kwargs)
     results_file = pathlib.Path(result_path) / (result_name or method) / "results.json"
     cache: dict = {}
     for snr in snrs:
         ds = GalaxyDataset(data_root, "test", obs_variant=f"obs_{snr}")
-        rec_shear = _rec_shear_bulk(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device,
-                                    cache=cache, cache_fields=("psf",))
+        rec_shear = _rec_shear(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device, mesh,
+                               cache=cache, cache_fields=("psf",))
         update = {str(snr): {"rec_shear": rec_shear.tolist(), "data_root": str(data_root)}}
-        if method == "No_Deconv":
+        if method == "No_Deconv" and is_writer(mesh):
             gt = torch.from_numpy(np.array(ds.gt[:rec_shear.shape[0]], np.float32)).to(resolve_device(device))
             with torch.inference_mode():
                 update[str(snr)]["gt_shear"] = estimate_shear(gt).cpu().numpy().tolist()
         update["meta"] = {"data_root": str(data_root), "n_gal": int(rec_shear.shape[0])}
-        _merge_write(results_file, update, data_root=data_root)
+        _write(results_file, update, data_root, mesh)
         logger.info("%s snr=%s: %d galaxies", method, snr, rec_shear.shape[0])
     return _load_results(results_file)
 
 
 def run_time_test(method: str, data_root, result_path, n_gal: int = 10000, batch_size: int = 512, state_dict=None,
                   warmup: int = 2, repeats: int = 3, result_name: Optional[str] = None, device="cuda",
-                  **model_kwargs) -> float:
+                  mesh: Optional[Mesh] = None, **model_kwargs) -> float:
     """Host-clock time of the whole sweep, model and shear measurement
     (reference test.py:110-192), over whole batches of the random-SNR split:
     ``warmup`` untimed sweeps of one batch, then the median of ``repeats``;
     the final fetch synchronises.  Writes ``time`` = [seconds, n_gal] and
-    ``time_spread`` = [min, max]; returns the median seconds."""
+    ``time_spread`` = [min, max]; returns the median seconds.  With ``mesh``
+    every rank waits for the others before and after each timed sweep."""
+    device = device if mesh is None else mesh.device
     apply_fn = _apply_fn(method, state_dict, device, model_kwargs)
     ds = GalaxyDataset(data_root, "test")
     # whole batches only: a padded tail costs a full batch but is not counted
     n_gal = max(batch_size, (min(n_gal, len(ds)) // batch_size) * batch_size)
     for _ in range(warmup):
-        _rec_shear_bulk(apply_fn, ds, min(batch_size, n_gal), batch_size, method, device)
+        _rec_shear(apply_fn, ds, min(batch_size, n_gal), batch_size, method, device, mesh)
     times = []
     for _ in range(max(1, repeats)):
+        barrier(mesh)
         t0 = time.perf_counter()
-        rec = _rec_shear_bulk(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device)
+        rec = _rec_shear(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device, mesh)
+        barrier(mesh)
         times.append(time.perf_counter() - t0)
     elapsed = float(np.median(times))
-    _merge_write(
+    _write(
         pathlib.Path(result_path) / (result_name or method) / "results.json",
         {"time": (elapsed, int(rec.shape[0])), "time_spread": (float(min(times)), float(max(times))),
          "meta": {"data_root": str(data_root)}},
-        data_root=data_root,
+        data_root, mesh,
     )
     logger.info("%s: %d galaxies, median %.3fs of %d repeats [%.3f, %.3f] (%.1f gal/s)", method, rec.shape[0],
                 elapsed, len(times), min(times), max(times), rec.shape[0] / elapsed)
@@ -203,20 +251,21 @@ def run_time_test(method: str, data_root, result_path, n_gal: int = 10000, batch
 
 def run_psf_error_test(method: str, data_root, result_path, errs: Sequence[float], kind: str = "shear",
                        n_gal: int = 10000, batch_size: int = 512, state_dict=None, result_name: Optional[str] = None,
-                       device="cuda", **model_kwargs) -> dict:
+                       device="cuda", mesh: Optional[Mesh] = None, **model_kwargs) -> dict:
     """PSF-systematics sweep (reference test_psf.py, batched): the true
     observations deconvolved with the perturbed PSFs ``psf_{kind}_err_{e}``."""
+    device = device if mesh is None else mesh.device
     apply_fn = _apply_fn(method, state_dict, device, model_kwargs)
     results_file = pathlib.Path(result_path) / (result_name or method) / f"results_psf_{kind}_err.json"
     cache: dict = {}
     for e in errs:
         ds = GalaxyDataset(data_root, "test", psf_variant=f"psf_{kind}_err_{e}")
-        rec_shear = _rec_shear_bulk(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device,
-                                    cache=cache, cache_fields=("obs",))
-        _merge_write(results_file,
-                     {str(e): {"rec_shear": rec_shear.tolist(), "data_root": str(data_root)},
-                      "meta": {"data_root": str(data_root)}},
-                     data_root=data_root)
+        rec_shear = _rec_shear(apply_fn, ds, min(n_gal, len(ds)), batch_size, method, device, mesh,
+                               cache=cache, cache_fields=("obs",))
+        _write(results_file,
+               {str(e): {"rec_shear": rec_shear.tolist(), "data_root": str(data_root)},
+                "meta": {"data_root": str(data_root)}},
+               data_root, mesh)
         logger.info("%s psf_%s_err=%s done", method, kind, e)
     return _load_results(results_file)
 

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from galaxy_deconv_tpu_torch.parallel.batch import batch_mean
+
 
 def make_u(n: int, m: int) -> np.ndarray:
     """The six moment-constraint matrices U1..U6 (6, n, m).
@@ -144,5 +146,7 @@ class ShapeConstraint:
         # (B, 6, S, H, W) products, formed as the JAX package forms them; L1
         # over batch and pixels per constraint, squared, mu-weighted, halved
         diff = output[:, None, None] * psu[None] - target[:, None, None] * psu[None]
-        l1 = diff.abs().mean(dim=(0, -2, -1))  # (6, S)
+        # over the global batch inside a data-parallel step: the square of a batch mean is not a mean of
+        # per-sample terms, so averaging the ranks' losses alone would not give the global loss
+        l1 = batch_mean(diff.abs().mean(dim=(0, -2, -1)))  # (6, S)
         return loss + self.gamma * (mu * l1**2).sum() / 2.0

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from galaxy_deconv_tpu_torch.parallel.batch import batch_sum, in_global_batch
+
 
 class ResBlock(nn.Module):
     """x + Conv3x3 -> ReLU -> Conv3x3, bias-free, same width in and out."""
@@ -51,14 +53,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance is the biased ``mean(x^2) - mean(x)^2`` clamped at 0 (torch
     stores the unbiased n/(n-1) one), and running = (1 - momentum) * running
     + momentum * batch, flax's momentum 0.9 being this class's 0.1.
+
+    Inside ``parallel.global_batch(group)`` (a data-parallel train step) the
+    statistics are the global batch's, as under a JAX mesh: the per-channel
+    sums of x and x^2 and the count are all-reduced in float32 over the
+    group, differentiably (``parallel/batch.py``), then divided by the global
+    count.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x.float()).to(x.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if in_global_batch():
+            C = xf.shape[1]
+            sums = batch_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                        xf.new_full((1,), xf.numel() // C)]))
+            mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        else:
+            mean, mean2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+        var = (mean2 - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)

@@ -420,8 +420,10 @@ def test_cli_test_loads_a_checkpoint(root, tmp_path, flagship):
 
 
 def test_cli_test_refuses_a_mesh_and_needs_a_card(root, tmp_path):
+    # --n_devices must equal the world size: 8 devices in a process alone is refused (the data-parallel runs
+    # under a launcher are tests/test_torch_parallel.py's)
     base = ["test", "--data_path", str(root), "--result_path", str(tmp_path), "--methods", "No_Deconv"]
-    with pytest.raises(SystemExit, match="one device"):
+    with pytest.raises(ValueError, match="n_devices=8, but the process group has 1 rank"):
         cli.main(base + ["--n_devices", "8", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

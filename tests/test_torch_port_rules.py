@@ -2,10 +2,11 @@
 
 Every module of galaxy_deconv_tpu_torch and chip_smoke.py imports with jax,
 flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline,
-training (through ``cli train``), generate, test and zoo phases and the
-package's ``python -m`` entry point (``generate`` then ``test``) run on the
-CPU (at a tiny size, through the plain x-update solve and its plain
-backward) with them blocked.  chip_smoke.py exits non-zero and prints no
+training (through ``cli train``), generate, test, zoo, trainers and
+data-parallel phases and the package's ``python -m`` entry point
+(``generate`` then ``test``) run on the CPU (at a tiny size, through the plain
+x-update solve and its plain backward) with them blocked, the data-parallel
+phase's ranks too.  chip_smoke.py exits non-zero and prints no
 result without a card, and when it stands alone in a directory."""
 
 import ast
@@ -36,9 +37,9 @@ sys.path.insert(0, {str(REPO)!r})
 """
 
 
-def run_blocked(body: str, timeout: int = 300) -> subprocess.CompletedProcess:
+def run_blocked(body: str, timeout: int = 300, env: dict = ENV) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, "-c", _BLOCKER + body], capture_output=True, text=True,
-                          timeout=timeout, cwd=REPO, env=ENV)
+                          timeout=timeout, cwd=REPO, env=env)
 
 
 def port_modules():
@@ -249,3 +250,38 @@ print("trainers phase ok")
     res = run_blocked(body, timeout=600)
     assert res.returncode == 0, res.stderr
     assert "trainers phase ok" in res.stdout and "no host sync" in res.stdout
+
+
+def test_chip_smoke_data_parallel_phase_runs_on_cpu_without_jax(tmp_path):
+    """Phase 11 at a tiny size over gloo, in its two torchrun calls: (a) ``cli
+    train`` at world size 1 against phase 6's epoch, (b) two ranks of 2
+    against one process on 4, (c) ``cli test`` at world sizes 1 and 2 against
+    phase 8's rows.  The ranks are other interpreters; a ``sitecustomize`` on
+    their PYTHONPATH blocks JAX in them too."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    body = """
+import importlib.util, pathlib, tempfile, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+torch.set_num_threads(2)
+cpu = torch.device("cpu")
+narrow = (8, 8, 8, 8)
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = pathlib.Path(tmp)
+    p6 = cs.phase_train_fp32(cpu, B=4, n_stamps=12, n_iters=1, features=narrow, n_check=2, n_steps=2, n_warm=1)
+    cs.phase_generate(cpu, tmp / "gen", n_train=2, n_test=3, pupil_n=16, chunk=4, errs=(0.05,), n_check=2)
+    cs.phase_test(cpu, tmp / "gen", tmp / "results", "cpu", methods=("No_Deconv", "Unrolled_ADMM_Gaussian(1)"),
+                  flagship="Unrolled_ADMM_Gaussian(1)", n_gal=3, batch=2, snrs=(20,), errs=(0.05,), n_check=2)
+    dp = cs.phase_data_parallel(cpu, "cpu", tmp / "gen", tmp / "results", tmp / "dp", p6, B=4, n_stamps=12,
+                                n_iters=1, features=narrow, method="Unrolled_ADMM_Gaussian(1)", n_gal=3, batch=2,
+                                snrs=(20,))
+# CPU tensors take the plain versions
+assert dp["launches"] == (0, 0) and dp["b_launches"] == [(0, 0), (0, 0)] and dp["sweeps"][2]["launches"] == [0, 0]
+assert dp["sweeps"][1]["err"] == dp["sweeps"][2]["err"] == 0
+print("data parallel phase ok")
+"""
+    res = run_blocked(body, timeout=600, env={**ENV, "PYTHONPATH": str(site)})
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "data parallel phase ok" in res.stdout and "replicas bit-identical: True" in res.stdout

@@ -62,10 +62,20 @@ def test_optical_autocorr_matches_jax(drawn):
     # tier-1 run read 2.1e-4 here, in the first test of its worker, where
     # reruns read 1.8e-7, so a result that changes between two calls on the
     # same inputs is told apart from one that differs from JAX's every time
+    # On a failure the message also names the largest error's index, both
+    # sides' values there and their normalisers (the centre, pad // 2, each
+    # autocorrelation is divided by), and the CPU kernels torch dispatched to,
+    # so that a recurrence tells a whole array scaled from one region moved.
     cfg, p = drawn
     want = per_sample(lambda q: J.optical_autocorr(q, J.SimulationConfig(**cfg)), p, N)
     got = [T.optical_autocorr(torch_params(p), T.SimulationConfig(**cfg)) for _ in range(2)]
-    context = f"\nthreading of this process: {torch.__config__.parallel_info()}"
+    err = np.abs(got[0].numpy() - np.asarray(want))
+    i = tuple(int(k) for k in np.unravel_index(err.argmax(), err.shape))
+    c = cfg["pupil_pad"] // 2
+    context = (f"\nthreading of this process: {torch.__config__.parallel_info()}"
+               f"\nlargest error at {i}: got {float(got[0][i]):.9e}, want {float(want[i]):.9e}; normaliser "
+               f"acorr[:, {c}, {c}]: got {got[0][:, c, c].tolist()}, want {np.asarray(want)[:, c, c].tolist()}; "
+               f"torch.backends.cpu.get_cpu_capability() {torch.backends.cpu.get_cpu_capability()}")
     assert torch.equal(got[0], got[1]), f"two calls differ by {float((got[0] - got[1]).abs().max()):.3e}{context}"
     assert_rel(got[0], want, note=context)
 
