@@ -93,6 +93,21 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              gradient's all-reduce timed), then (c) the same sweep at a
              global batch of 1,024; each sweep's rows against phase 8's, its
              gal/s and launches.
+12. measurement  the measurement entry points at full width, weights from
+             seed 0: (a) ``galaxy_deconv_tpu_torch bench`` (``cli bench``) in
+             fp32 and bf16 at B = 256 and the CLI's default 1,024, a process
+             each, each last line held to ``bench.py``'s schema; (b) the bench
+             module's timed run in this process, fp32 at B = 256: its last
+             rows equal to phase 4's bit for bit, 8 solve launches per forward
+             and none of the backward; (c) ``scripts/mfu_torch.py`` in each
+             dtype, timed on the card, its FLOP count equal to the count from
+             the layers' shapes; (d) ``scripts/bench_pipeline_torch.py`` at
+             B = 256 on phase 7's tree, one pass (the simulator, the reader,
+             pageable and pinned copies: a check that the probe runs, the
+             256-galaxy split too small to measure the reader); (e) ``examples/deconv_single_image_torch.py``
+             with phase 6's checkpoint on phase 7's first test galaxy, on the
+             card against the CPU (REC_REL_TOL, SHEAR_TOL), 8 solve launches;
+             the phase's seconds.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -105,6 +120,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import importlib.util
 import json
 import os
 import pathlib
@@ -119,7 +135,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from galaxy_deconv_tpu_torch import cli
+from galaxy_deconv_tpu_torch import bench, cli
+from galaxy_deconv_tpu_torch.bench import bench_inputs
 from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, train_val_indices
 from galaxy_deconv_tpu_torch.data import simulate as sim
 from galaxy_deconv_tpu_torch.eval import harness
@@ -246,16 +263,13 @@ DP_STATS_TOL = 1e-5
 DP_SHEAR_TOL = MOMENT_REL_TOL
 DP_STEPS = 3
 DP_TIMEOUT_S = 300  # each torchrun call, its ranks' start-up included
-
-
-def bench_inputs(B: int, seed: int = 0):
-    """The stamps ``bench.py`` times: |N(0,1)| * 20 obs, normalised |N| PSFs, alpha 50."""
-    rng = np.random.default_rng(seed)
-    obs = np.abs(rng.standard_normal((B, 48, 48))).astype(np.float32) * 20
-    psf = np.abs(rng.standard_normal((B, 48, 48))).astype(np.float32)
-    psf = psf / psf.sum(axis=(1, 2), keepdims=True) / 16.0
-    alpha = np.full((B,), 50.0, np.float32)
-    return obs, psf, alpha
+# Phase 12, the measurement entry points.  ``cli bench`` at bench.py's batch and the CLI's default, in each dtype,
+# each in a process of its own as a user runs it; the bench module's timed run in this process, whose fp32 rows at
+# BATCH must equal phase 4's bit for bit (the same code, weights and inputs on the same card).
+BENCH_BATCHES = (BATCH, 1024)
+MEASURE_REPEATS = 10
+COMMAND_TIMEOUT_S = 240  # each cli bench process, its start-up included
+REPO = pathlib.Path(__file__).resolve().parent
 
 
 def card_line() -> str:
@@ -665,10 +679,12 @@ def _check_checkpoint(state, save: pathlib.Path, name: str, epoch: int = 1) -> i
 
 
 def phase_train_fp32(device, B=TRAIN_BATCH, n_stamps=N_STAMPS, n_iters=FLAGSHIP["n_iters"],
-                     features=FLAGSHIP["features"], n_check=N_CPU_CHECK, n_steps=20, n_warm=5) -> dict:
+                     features=FLAGSHIP["features"], n_check=N_CPU_CHECK, n_steps=20, n_warm=5,
+                     save: pathlib.Path | None = None) -> dict:
+    """Phase 6; ``cli train`` checkpoints into ``save`` (default: a directory removed after the phase)."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = write_dataset(pathlib.Path(tmp) / "data", n_stamps)
-        save = pathlib.Path(tmp) / "models"
+        save = save or pathlib.Path(tmp) / "models"
         ds = GalaxyDataset(root)
 
         # (a) the command line, one epoch at full width, each step's loss and ms recorded for phase 11 (which
@@ -1257,9 +1273,16 @@ def torchrun(n: int, out: pathlib.Path, backend: str, device: str, jobs: list,
     ranks are one process group, killed whole at ``timeout``."""
     out.mkdir(parents=True, exist_ok=True)
     argv = [a for k, job in enumerate(jobs) for a in (["--then"] if k else []) + list(job)]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
-           str(pathlib.Path(__file__).resolve()), "--rank", str(out), backend, device, *map(str, argv)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    run_command([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n),
+                 str(pathlib.Path(__file__).resolve()), "--rank", str(out), backend, device, *map(str, argv)], timeout)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+def run_command(cmd: list, timeout: float) -> tuple[str, str]:
+    """``cmd`` from the repository's root in a session of its own, killed
+    whole at ``timeout``; its stdout and stderr.  Raises unless it exits 0."""
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1268,7 +1291,7 @@ def torchrun(n: int, out: pathlib.Path, backend: str, device: str, jobs: list,
         raise AssertionError(f"{' '.join(cmd)} did not finish in {timeout} s")
     if proc.returncode:
         raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
-    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(n)]
+    return stdout, stderr
 
 
 def rank_main(argv: list) -> int:
@@ -1488,6 +1511,115 @@ def phase_data_parallel(device, card: str, eval_root: pathlib.Path, ref: pathlib
             "all_reduce_ms": r0["all_reduce_ms"], "wall_s": world1_s + world2_s}
 
 
+def load_script(rel: str):
+    """A script of the repository (``scripts/...``, ``examples/...``) as a module; its ``main`` does not run."""
+    path = REPO / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_bench_line(stdout: str) -> dict:
+    """The last line of ``cli bench``'s output: ``bench.py``'s schema, letter
+    for letter (``vs_baseline`` is the unrounded rate's ratio, rounded: within
+    0.05 of the printed value's ratio, plus 0.05 gal/s of its rounding)."""
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    if (list(rec) != ["metric", "value", "unit", "vs_baseline"] or rec["metric"] != bench.METRIC
+            or rec["unit"] != "gal/s/chip" or not rec["value"] > 0
+            or abs(rec["vs_baseline"] - rec["value"] / bench.BASELINE_GAL_PER_SEC)
+            > 0.05 + 0.05 / bench.BASELINE_GAL_PER_SEC):
+        raise AssertionError(f"cli bench printed {rec}")
+    return rec
+
+
+def phase_measurement(device, card: str, fp32: dict, root: pathlib.Path, models: pathlib.Path, B=BATCH,
+                      bench_batches=BENCH_BATCHES, repeats=MEASURE_REPEATS, n_iters=FLAGSHIP["n_iters"],
+                      features=FLAGSHIP["features"], mfu_batch=BATCH, probe_batch=256) -> dict:
+    """Phase 12, the measurement entry points: (a) ``cli bench`` in each dtype
+    at each of ``bench_batches``, a process each; (b) the bench module's timed
+    run in this process, fp32 at B, its rows against phase 4's (``fp32``) bit
+    for bit and its launches; (c) ``scripts/mfu_torch.py`` in each dtype, timed
+    on the card, its FLOP count against the analytic count; (d)
+    ``scripts/bench_pipeline_torch.py`` at one batch size on phase 7's tree
+    ``root``, one pass, a check that it runs; (e) ``examples/deconv_single_image_torch.py`` with phase 6's
+    checkpoint in ``models`` (Richardson-Lucy when it holds none) on ``root``'s
+    first test galaxy, on the device against the CPU."""
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    rates = {}
+    for dtype in bench.DTYPES:
+        for batch in bench_batches:
+            stdout, stderr = run_command([sys.executable, "-m", "galaxy_deconv_tpu_torch", "bench", "--batch_size",
+                                          str(batch), "--repeats", str(repeats), "--dtype", dtype, "--device",
+                                          device.type], COMMAND_TIMEOUT_S)
+            rates[(dtype, batch)] = check_bench_line(stdout)["value"]
+    print(f"bench (a) ({card}): cli bench, {stderr.splitlines()[0]}, {repeats} calls after a warm-up, host clock "
+          "from a synchronised device to the last result on the host, a process each: "
+          + ", ".join(f"{dt} B={b} {v:.1f}" for (dt, b), v in rates.items()) + " gal/s; bench.py's schema")
+
+    pipe = bench.bench_pipeline("float32", device, n_iters=n_iters, features=features)
+    _sync(device)
+    xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+    seconds, rows = bench.timed_run(pipe, bench_inputs(B), repeats)
+    _sync(device)
+    launches = (xu.x_update_solve.launches, xu.x_update_solve_backward.launches)
+    want = (n_iters * (repeats + 1), 0) if cuda else (0, 0)
+    same = torch.equal(rows, fp32["shear"])
+    print(f"bench (b): the module's timed run in this process, fp32, B={B}: {repeats * B / seconds:.1f} gal/s; "
+          f"solve launches forward {launches[0]}, backward {launches[1]} over {repeats + 1} forwards (expected "
+          f"{want}); its last rows equal phase 4's bit for bit: {same}")
+    if launches != want or not same:
+        raise AssertionError("the bench's timed run disagrees with phase 4's pipeline or its launches")
+
+    mfu = load_script("scripts/mfu_torch.py")
+    reports, mfu_launches = {}, 0
+    for dtype in bench.DTYPES:
+        argv = ["--batch", str(mfu_batch), "--repeats", str(repeats), "--dtype", dtype]
+        xu.x_update_solve.launches = 0
+        reports[dtype] = report = mfu.main(argv if cuda else argv + ["--cpu-flops", "--gal_per_sec", "1"])
+        _sync(device)
+        mfu_launches += xu.x_update_solve.launches
+        if report["conv_matmul_flops_per_galaxy"] != report["analytic_flops_per_galaxy"]:
+            raise AssertionError(f"mfu_torch.py counted {report['conv_matmul_flops_per_galaxy']} FLOPs a galaxy, "
+                                 f"the layers' shapes give {report['analytic_flops_per_galaxy']}")
+    print(f"mfu (c) ({card}): " + "; ".join(
+        f"{dt} {r['gal_per_sec']:.1f} gal/s ({r['throughput_source']}), {r['sustained_model_tflops']:.2f} TFLOP/s, "
+        f"mfu_vs_dtype_peak {r['mfu_vs_dtype_peak']:.4f} of {r['peak_tflops_dtype_matched']} TFLOP/s"
+        for dt, r in reports.items()) + f"; {reports['float32']['conv_matmul_flops_per_galaxy']} FLOPs a galaxy, "
+        "equal to the analytic count")
+
+    probe = load_script("scripts/bench_pipeline_torch.py").main(
+        ["--data", str(root), "--device", device.type, "--batches", str(probe_batch), "--repeats", str(repeats),
+         "--passes", "1"])
+    read = probe["read"].get(probe_batch, {})
+    if not (probe["simulate"][probe_batch] > 0 and min(read.get("host", [0])) > 0
+            and (not cuda or min(read.get("pinned", [0])) > 0)):
+        raise AssertionError(f"bench_pipeline_torch.py gave {probe}")
+
+    tutorial = load_script("examples/deconv_single_image_torch.py")
+    argv = ["--checkpoint", str(models), "--data_path", str(root)]
+    xu.x_update_solve.launches = 0
+    got = tutorial.main(argv + ["--device", device.type])
+    _sync(device)
+    tutorial_launches = xu.x_update_solve.launches
+    ref = tutorial.main(argv + ["--device", "cpu"])
+    flagship = got["method"].startswith("Unrolled")
+    rec_rel = float(np.abs(got["rec"] - ref["rec"]).max() / np.abs(ref["rec"]).max())
+    g_err = float((np.abs(got["g_rec"] - ref["g_rec"]) / (1 + np.abs(ref["g_rec"]))).max())
+    tol = REC_REL_TOL if flagship else BASELINE_REC_REL_TOL
+    print(f"tutorial (e): {got['method']} on {device.type} against the CPU: rec max |d| / max |CPU| {rec_rel:.3e} "
+          f"(tol {tol}), shear max |dg| / (1 + |g|) {g_err:.3e} (tol {SHEAR_TOL}); solve launches "
+          f"{tutorial_launches}")
+    if not (np.isfinite(got["rec"]).all() and np.isfinite(got["g_rec"]).all() and rec_rel <= tol
+            and g_err <= SHEAR_TOL and tutorial_launches == (8 if flagship and cuda else 0)):  # its 8 iterations
+        raise AssertionError("the tutorial's reconstruction on the device disagrees with the CPU's")
+    seconds = time.perf_counter() - t_phase
+    print(f"measurement ({card}): phase 12 took {seconds:.1f} s")
+    return {"rates": rates, "mfu": reports, "probe": probe, "seconds": seconds,
+            "launches": launches[0] + mfu_launches + tutorial_launches, "tutorial": got["method"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -1507,16 +1639,18 @@ def main() -> int:
     bf16 = phase_pipeline_bf16(device, fp32, repeats=10)
     print(f"throughput ({card}): fp32 {fp32['gal_per_s']:.1f} gal/s, bf16 {bf16['gal_per_s']:.1f} gal/s "
           f"(B={BATCH}, 10 forwards + shear each, host clock around torch.cuda.synchronize())")
-    train = phase_train_fp32(device)
-    print(f"training ({card}): fp32, TF32 off, B={train['batch']}: {train['step_ms']:.2f} ms per train step, "
-          f"{train['gal_per_s']:.1f} gal/s (median of {train['timed_steps']} steps after warm-up, host clock "
-          f"around torch.cuda.synchronize())")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        models = pathlib.Path(tmp) / "models"  # phase 6's checkpoint, for phase 12's tutorial
+        train = phase_train_fp32(device, save=models)
+        print(f"training ({card}): fp32, TF32 off, B={train['batch']}: {train['step_ms']:.2f} ms per train step, "
+              f"{train['gal_per_s']:.1f} gal/s (median of {train['timed_steps']} steps after warm-up, host clock "
+              f"around torch.cuda.synchronize())")
         gen = phase_generate(device, pathlib.Path(tmp) / "data")
         test = phase_test(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results", card)
         zoo = phase_zoo(device, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "zoo", card)
         dp = phase_data_parallel(device, card, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results",
                                  pathlib.Path(tmp) / "dp", train)
+        measure = phase_measurement(device, card, fp32, pathlib.Path(tmp) / "data", models)
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
           f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
           "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
@@ -1536,11 +1670,17 @@ def main() -> int:
           f"the flat gradient {dp['all_reduce_ms']:.2f} ms); the flagship's shear sweep at world 1 "
           f"{dp['sweeps'][1]['gal_per_s']:.1f} gal/s, over two gloo ranks {dp['sweeps'][2]['gal_per_s']:.1f}; phase 11 "
           f"{dp['wall_s']:.1f} s in its two launcher calls")
+    print(f"measurement ({card}): cli bench "
+          + ", ".join(f"{dt} B={b} {v:.1f}" for (dt, b), v in measure["rates"].items()) + " gal/s; mfu_vs_dtype_peak "
+          + ", ".join(f"{dt} {r['mfu_vs_dtype_peak']:.4f}" for dt, r in measure["mfu"].items())
+          + f"; phase 12 {measure['seconds']:.1f} s")
     # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training, the flagship's eval sweeps,
-    # the online run, the device-resident epoch, and phase 11's data-parallel epoch, steps and sweeps (each rank's)
+    # the online run, the device-resident epoch, phase 11's data-parallel epoch, steps and sweeps (each rank's),
+    # and phase 12's in-process bench run, MFU reports and tutorial
     kernel["launches"] = (fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
                           + online["forward_launches"] + resident["forward_launches"] + dp["launches"][0]
-                          + sum(f for f, _ in dp["b_launches"]) + sum(sum(r["launches"]) for r in dp["sweeps"].values()))
+                          + sum(f for f, _ in dp["b_launches"]) + sum(sum(r["launches"]) for r in dp["sweeps"].values())
+                          + measure["launches"])
     kernel_bwd["launches"] = (train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
                               + dp["launches"][1] + sum(b for _, b in dp["b_launches"]))
 

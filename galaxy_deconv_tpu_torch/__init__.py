@@ -16,9 +16,10 @@ mirrors its layout so each counterpart is easy to find:
 - ``train``    — train state, clipped Adam, checkpoints, the train loop.
 - ``eval``     — the shear, time, PSF-error and PSNR sweeps.
 - ``utils``    — the flax -> torch bridge (weights and train state), device
-                 resolution.
-- ``pipeline`` — model + shear measurement, the counterpart of ``bench.py``.
-- ``config``, ``cli`` — ``python -m galaxy_deconv_tpu_torch generate|train|test ...``.
+                 resolution, FLOP and byte counts.
+- ``pipeline`` — model + shear measurement, the pipeline ``bench.py`` times.
+- ``bench``    — the counterpart of ``bench.py`` and the MFU/roofline report.
+- ``config``, ``cli`` — ``python -m galaxy_deconv_tpu_torch generate|train|test|bench ...``.
 
 Public functions take the JAX layout, (B, H, W) stamps.  Entry points run on
 the CUDA device unless the caller passes ``device="cpu"`` (``--device cpu``).

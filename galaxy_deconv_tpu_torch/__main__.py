@@ -1,4 +1,4 @@
-"""``python -m galaxy_deconv_tpu_torch generate|train|test ...``: the command-line interface."""
+"""``python -m galaxy_deconv_tpu_torch generate|train|test|bench ...``: the command-line interface."""
 
 from galaxy_deconv_tpu_torch.cli import main
 

@@ -4,6 +4,7 @@
     python -m galaxy_deconv_tpu_torch train --data_path DIR [--model Tikhonet|ShapeNet|ResUNet] [--device cpu] ...
     python -m galaxy_deconv_tpu_torch train --online --n_steps N [--steps_per_call K] [--device cpu] ...
     python -m galaxy_deconv_tpu_torch test --data_path DIR --test shear [--methods ...] [--device cpu] ...
+    python -m galaxy_deconv_tpu_torch bench [--batch_size 1024] [--repeats 10] [--dtype float32] [--device cpu]
     torchrun --nproc_per_node N -m galaxy_deconv_tpu_torch train|test --n_devices N ...
 
 ``generate`` simulates a benchmark dataset, or with ``--task Denoise`` the
@@ -15,7 +16,9 @@ TF32 off, and checkpoints into ``--model_save_path`` as the reference's
 ``train.py`` does; ``train --online`` renders every batch on the device
 instead of reading a dataset (``train/online.py``); ``test`` runs the evaluation sweeps of
 the reference's ``test.py`` and ``test_psf.py`` over a method list of any
-registry names.  Each runs on the card unless ``--device cpu``.
+registry names; ``bench`` times the flagship pipeline on ``bench.py``'s
+stamps and prints its JSON line (``galaxy_deconv_tpu_torch/bench.py``).
+Each runs on the card unless ``--device cpu``.
 
 ``train`` (from a dataset) and ``test`` run data parallel under a launcher
 that starts one process per device, as the JAX CLI runs them on a mesh of
@@ -30,6 +33,7 @@ import argparse
 import logging
 import os
 
+from galaxy_deconv_tpu_torch import bench
 from galaxy_deconv_tpu_torch.config import add_args, from_namespace
 from galaxy_deconv_tpu_torch.data import GalaxyDataset, SimulationConfig, generate_dataset, generate_dataset_denoise
 from galaxy_deconv_tpu_torch.data.simulate import simulate_batch, simulate_batch_denoise
@@ -143,10 +147,15 @@ def _cmd_test(ns):
     return results
 
 
+def _cmd_bench(ns):
+    return bench.main(["--batch", str(ns.batch_size), "--repeats", str(ns.repeats), "--dtype", ns.dtype,
+                       "--device", ns.device])
+
+
 def main(argv=None):
     """Run one subcommand; returns what it returns (``generate``: the
     dataset's root; ``train``: the final train state and the history;
-    ``test``: each method's results)."""
+    ``test``: each method's results; ``bench``: its JSON record)."""
     logging.basicConfig(level=logging.INFO)
     parser = argparse.ArgumentParser(prog="galaxy_deconv_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -183,6 +192,14 @@ def main(argv=None):
     e.add_argument("--checkpoint_epoch", type=int, default=0, help="0 = the best-validation epoch")
     e.add_argument("--errs", type=float, nargs="*", default=list(DEFAULT_PSF_ERRS))
     e.set_defaults(fn=_cmd_test)
+
+    b = sub.add_parser("bench", help="throughput benchmark of the flagship pipeline")
+    b.add_argument("--batch_size", type=int, default=1024)
+    b.add_argument("--repeats", type=int, default=10)
+    b.add_argument("--dtype", type=str, default="bfloat16", choices=list(bench.DTYPES),
+                   help="the nets' compute type (the spectra stay float32)")
+    b.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    b.set_defaults(fn=_cmd_bench)
 
     ns = parser.parse_args(argv)
     return ns.fn(ns)

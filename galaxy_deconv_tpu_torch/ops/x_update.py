@@ -21,7 +21,9 @@ so the result is the same bit for bit every run); each raises if its launch
 fails.  On a CPU tensor they run :func:`x_update_solve_plain` and
 :func:`x_update_solve_backward_plain`.  Each kernel launch adds one to
 ``x_update_solve.launches`` or
-``x_update_solve_backward.launches``.  Gradients flow to Z and rho only: Y, Ht
+``x_update_solve_backward.launches``; a forward launch also adds the bytes of
+its operands, each read or written once, to ``x_update_solve.launched_bytes``
+(the MFU report's byte count, ``utils/flops.py``, cannot see inside it).  Gradients flow to Z and rho only: Y, Ht
 and HtH come from the observations and the PSF, which no training path
 differentiates, so the function raises if any of them requires grad.
 """
@@ -117,8 +119,10 @@ def _solve(Y, Ht, Z, HtH, rho):
     out = torch.empty_like(Y)
     if out.numel() == 0:
         return out
-    _launch("x_update_solve", Y, Ht, Z, HtH, rho, out, n_per_gal=Y[0].numel(), B=Y.shape[0])
+    operands = (Y, Ht, Z, HtH, rho, out)
+    _launch("x_update_solve", *operands, n_per_gal=Y[0].numel(), B=Y.shape[0])
     x_update_solve.launches += 1
+    x_update_solve.launched_bytes += sum(t.numel() * t.element_size() for t in operands)
     return out
 
 
@@ -172,4 +176,5 @@ def x_update_solve(Y, Ht, Z, HtH, rho):
 
 
 x_update_solve.launches = 0
+x_update_solve.launched_bytes = 0
 x_update_solve_backward.launches = 0

@@ -1,7 +1,9 @@
 """Rules of the PyTorch port: it runs where JAX does not exist.
 
-Every module of galaxy_deconv_tpu_torch and chip_smoke.py imports with jax,
-flax, orbax and the JAX package blocked, and chip_smoke.py's pipeline,
+Every module of galaxy_deconv_tpu_torch, chip_smoke.py and the port's
+scripts and tutorials (``scripts/*_torch.py`` but the bf16 cross-check,
+``examples/*_torch.py``) import with jax, flax, orbax and the JAX package
+blocked, and chip_smoke.py's pipeline,
 training (through ``cli train``), generate, test, zoo, trainers and
 data-parallel phases and the package's ``python -m`` entry point
 (``generate`` then ``test``) run on the CPU (at a tiny size, through the plain
@@ -23,6 +25,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 ENV = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
 PORT = REPO / "galaxy_deconv_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "orbax", "galaxy_deconv_tpu")
+# the port's scripts and tutorials; scripts/bf16_parity_torch.py is a cross-check that reads the JAX package's
+# orbax checkpoint and runs both packages, so it imports JAX as the tests do
+ENTRY_SCRIPTS = sorted(p for p in [*REPO.glob("scripts/*_torch.py"), *REPO.glob("examples/*_torch.py")]
+                       if p.name != "bf16_parity_torch.py")
 
 _BLOCKER = f"""
 import importlib.abc, sys
@@ -54,8 +60,9 @@ def test_every_module_and_chip_smoke_import_without_jax():
 import importlib, importlib.util
 for name in {port_modules()!r}:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", {str(REPO / "chip_smoke.py")!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in [{str(REPO / "chip_smoke.py")!r}, *{[str(p) for p in ENTRY_SCRIPTS]!r}]:
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1].removesuffix(".py"), path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print("imported", len({port_modules()!r}))
 """
     res = run_blocked(body)
@@ -68,7 +75,7 @@ def test_blocker_blocks():
     assert res.returncode != 0 and "blocked import" in res.stderr
 
 
-@pytest.mark.parametrize("path", [REPO / "chip_smoke.py", *sorted(PORT.rglob("*.py"))],
+@pytest.mark.parametrize("path", [REPO / "chip_smoke.py", *ENTRY_SCRIPTS, *sorted(PORT.rglob("*.py"))],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_statement_names_jax(path):
     for node in ast.walk(ast.parse(path.read_text())):
@@ -285,3 +292,34 @@ print("data parallel phase ok")
     res = run_blocked(body, timeout=600, env={**ENV, "PYTHONPATH": str(site)})
     assert res.returncode == 0, res.stderr[-4000:]
     assert "data parallel phase ok" in res.stdout and "replicas bit-identical: True" in res.stdout
+
+
+def test_chip_smoke_measurement_phase_runs_on_cpu_without_jax(tmp_path):
+    """Phase 12 at a tiny size in this JAX-blocked process (``cli bench`` in
+    subprocesses, blocked through a ``sitecustomize`` on their PYTHONPATH):
+    ``cli bench`` at B = 2 in both dtypes, the bench module's timed run
+    against phase 4's rows at the same width, the MFU report (counted on the
+    CPU), the input-pipeline probe on phase 7's tree and the tutorial
+    (Richardson-Lucy: no checkpoint of the full-width flagship here)."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCKER)
+    body = f"""
+import importlib.util, pathlib, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+torch.set_num_threads(2)
+cpu = torch.device("cpu")
+tmp = pathlib.Path({str(tmp_path)!r})
+narrow = dict(n_iters=2, features=(8, 8, 8, 8))
+fp32 = cs.phase_pipeline_fp32(cpu, B=4, n_check=2, **narrow)
+cs.phase_generate(cpu, tmp / "data", n_train=8, n_test=3, pupil_n=16, chunk=8, errs=(0.05,), n_check=2)
+res = cs.phase_measurement(cpu, "cpu", fp32, tmp / "data", tmp / "no_models", B=4, bench_batches=(2,), repeats=1,
+                           mfu_batch=1, probe_batch=4, **narrow)
+assert set(res["rates"]) == {{("float32", 2), ("bfloat16", 2)}} and res["launches"] == 0
+assert res["tutorial"] == "Richardson-Lucy (30)" and set(res["mfu"]) == {{"float32", "bfloat16"}}
+print("measurement phase ok")
+"""
+    res = run_blocked(body, timeout=600, env={**ENV, "PYTHONPATH": str(site), "OMP_NUM_THREADS": "2"})
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "measurement phase ok" in res.stdout and "equal phase 4's bit for bit: True" in res.stdout
