@@ -108,6 +108,30 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              with phase 6's checkpoint on phase 7's first test galaxy, on the
              card against the CPU (REC_REL_TOL, SHEAR_TOL), 8 solve launches;
              the phase's seconds.
+13. scripts  the paper's reproduction, measurement and science scripts
+             (``scripts/*_torch.py``), each through its ``main`` or the
+             functions it is built from, in this process: (a)
+             ``train_zoo_torch --models admm2 resunet`` for 4 steps of 32 at
+             full width (validation every 2 steps): finite losses, the
+             histories and checkpoints, 2 + 2 solve launches per ADMM(2)
+             step and 2 per validation forward, none for the ResUNet; (b)
+             ``export_trained_torch`` of (a), then ``run_benchmark_torch`` of
+             No_Deconv and Unrolled_ADMM_Gaussian(2) on phase 7's tree, its
+             shear rows equal to ``cli test``'s of the same checkpoint bit for
+             bit and its tables between the markers of its RESULTS.md; (c)
+             ``reference_protocol_torch`` for 2 epochs of 512 stamps: the
+             checkpoints the save rule names, ``best_epoch`` from its history;
+             (d) ``generate_sharded_torch``, two workers and the merge, against
+             ``generate_dataset`` byte for byte; (e) ``profile_ops_torch`` in
+             fp32 at B = 256, its ``full`` rows equal to phase 4's bit for bit
+             and 8 solve launches a ``fftpath`` call, and
+             ``reconcile_throughput_torch``'s configurations with phase 6's
+             checkpoint, A's and B's shears within SCRIPT_SHEAR_TOL; (f)
+             ``scaling_torch`` under ``torchrun`` at world size 1 over NCCL;
+             (g) ``rho_trace_torch``'s statistics, ``make_figures_torch``'s
+             trace arrays and ``cross_estimator_torch``'s statistics, card
+             against CPU, and ``population_sweep_torch`` on two populations;
+             the phase's seconds.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -137,12 +161,13 @@ import torch
 
 from galaxy_deconv_tpu_torch import bench, cli
 from galaxy_deconv_tpu_torch.bench import bench_inputs
-from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, train_val_indices
+from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, generate_dataset, train_val_indices
 from galaxy_deconv_tpu_torch.data import simulate as sim
 from galaxy_deconv_tpu_torch.eval import harness
 from galaxy_deconv_tpu_torch.losses import MultiScaleLoss, build_loss, get_model_name
 from galaxy_deconv_tpu_torch.metrics.shear import estimate_shear, fpfs_moments
 from galaxy_deconv_tpu_torch.models import UnrolledADMMGaussian
+from galaxy_deconv_tpu_torch.models import registry
 from galaxy_deconv_tpu_torch.ops import native
 from galaxy_deconv_tpu_torch.ops import x_update as xu
 from galaxy_deconv_tpu_torch.pipeline import build_pipeline
@@ -157,8 +182,10 @@ from galaxy_deconv_tpu_torch.train import (
     restore_checkpoint,
     upload_split,
 )
-from galaxy_deconv_tpu_torch.train.checkpoint import state_payload
+from galaxy_deconv_tpu_torch.train.checkpoint import (best_epoch, find_checkpoint, latest_epoch, state_payload,
+                                                      unpack_variables)
 from galaxy_deconv_tpu_torch.train.online import TRAIN, step_seed
+from galaxy_deconv_tpu_torch.utils.device import card_name_and_power_limit, fp32_only
 
 BATCH = 256
 TRAIN_BATCH = 32  # config.py's default batch
@@ -269,13 +296,14 @@ DP_TIMEOUT_S = 300  # each torchrun call, its ranks' start-up included
 BENCH_BATCHES = (BATCH, 1024)
 MEASURE_REPEATS = 10
 COMMAND_TIMEOUT_S = 240  # each cli bench process, its start-up included
+# Phase 13, the scripts.  Limits fixed before the first reading on the card: reconcile's fp32 configurations A
+# (batch 250) and B (batch 256) on the same galaxies, whose convolutions cuDNN may run by other algorithms, at
+# SCRIPT_SHEAR_TOL * (1 + |g|); rho_trace's statistics and make_figures' trace arrays, card against CPU (fp32, TF32
+# off), at REC_REL_TOL of each field's largest CPU value; the cross-estimator statistics at SCRIPT_STAT_TOL * (1 +
+# |CPU|).  Sizes cut for the phase's time: PERF.md section 4.
+SCRIPT_SHEAR_TOL = 1e-4
+SCRIPT_STAT_TOL = 1e-4
 REPO = pathlib.Path(__file__).resolve().parent
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def _event_ms(fn, n: int) -> float:
@@ -1620,6 +1648,255 @@ def phase_measurement(device, card: str, fp32: dict, root: pathlib.Path, models:
             "launches": launches[0] + mfu_launches + tutorial_launches, "tutorial": got["method"]}
 
 
+def _peak_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _numbers(tree) -> list:
+    """Every number of a nested report, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _numbers(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _numbers(v)]
+    return [float(tree)] if isinstance(tree, (int, float)) else []
+
+
+def _block(text: str, tag: str) -> str:
+    """What sits between a RESULTS.md's ``<!-- tag START/END -->`` markers."""
+    return text.split(f"<!-- {tag} START -->", 1)[1].split(f"<!-- {tag} END -->", 1)[0]
+
+
+# phase 13's widths and sizes on the card (PERF.md section 4); tests/test_torch_port_rules.py gives the CPU its own.
+# "sim" overrides SimulationConfig's fields, "sharded" is (n_train, n_test, chunk), "n_gal" the galaxies of
+# run_benchmark_torch and cli test, "trace_batch" rho_trace_torch's batch on the card and on the CPU.
+SCRIPT_SIZES = {
+    "features": FLAGSHIP["features"], "denoiser_features": (64, 128, 256, 512), "sim": {}, "train_batch": TRAIN_BATCH,
+    "n_stamps": 512, "sharded": (64, 256, 64), "n_gal": 64, "eval_batch": 250, "profile_batch": BATCH,
+    "profile_repeats": 5, "reconcile_n_gal": 512, "trace_batch": 32, "cross_n_gal": 128, "pop_n_gal": 128}
+
+
+def phase_scripts(device, card: str, fp32: dict, root: pathlib.Path, models: pathlib.Path, work: pathlib.Path,
+                  sizes: dict = SCRIPT_SIZES) -> dict:
+    """Phase 13, the scripts of ``scripts/*_torch.py`` on phase 7's tree
+    ``root``, with phase 6's checkpoint in ``models`` and phase 4's fp32 rows
+    ``fp32``; every output under ``work``.  ``sizes`` gives the widths, the
+    simulator's overrides and the sizes (:data:`SCRIPT_SIZES` on the card)."""
+    t_phase = time.perf_counter()
+    cuda, dev, n8 = device.type == "cuda", device.type, FLAGSHIP["n_iters"]
+    flagship_run = get_model_name("Unrolled_ADMM", "MultiScale", n_iters=n8)
+    launches = {"forward": 0, "backward": 0}
+
+    def counted(fn, *args, **kwargs):
+        """``fn``'s result and its solve launches (forward, backward), added to the phase's."""
+        xu.x_update_solve.launches = xu.x_update_solve_backward.launches = 0
+        out = fn(*args, **kwargs)
+        _sync(device)
+        got = (xu.x_update_solve.launches, xu.x_update_solve_backward.launches)
+        launches["forward"] += got[0]
+        launches["backward"] += got[1]
+        return out, got
+
+    def expect(what: str, got: tuple, forward: int, backward: int = 0) -> None:
+        want = (forward, backward) if cuda else (0, 0)
+        if got != want:
+            raise AssertionError(f"{what}: solve launches {got}, expected {want}")
+
+    def script(name: str):
+        """The script as a module, at this phase's widths and optics."""
+        mod = load_script(f"scripts/{name}.py")
+        for attr, key in (("FEATURES", "features"), ("DENOISER_FEATURES", "denoiser_features")):
+            if hasattr(mod, attr):
+                setattr(mod, attr, tuple(sizes[key]))
+        if sizes["sim"] and hasattr(mod, "SimulationConfig"):
+            mod.SimulationConfig = functools.partial(sim.SimulationConfig, **sizes["sim"])
+        return mod
+
+    narrow = tuple(sizes["features"]) != FLAGSHIP["features"]
+    with contextlib.ExitStack() as stack:
+        if narrow:  # the flagship by harness name at this phase's widths
+            stack.enter_context(mock.patch.dict(registry.MODEL_REGISTRY, {
+                "Unrolled_ADMM_Gaussian": functools.partial(UnrolledADMMGaussian, features=tuple(sizes["features"]))}))
+
+        # (a) the zoo's online training: ADMM(2) and the ResUNet denoiser, validation every 2 steps
+        tz, zoo, steps, tb = script("train_zoo_torch"), work / "zoo", 4, sizes["train_batch"]
+        with mock.patch.object(tz, "VAL_EVERY", 2):
+            _, got = counted(tz.main, ["--models", "admm2", "resunet", "--steps", str(steps), "--steps_per_call", "2",
+                                       "--batch", str(tb), "--save_path", str(zoo), "--device", dev])
+        hists = {}
+        for key in ("admm2", "resunet"):
+            name = tz.SPECS[key][0]
+            hists[key] = h = json.loads((zoo / f"{name}_history.json").read_text())
+            if not (h["step"] == [2, 4] and np.isfinite(h["train_loss"] + h["val_loss"]).all()
+                    and best_epoch(zoo, name) == h["best_step"] and checkpoint_steps(zoo, name) >= {h["best_step"], 4}):
+                raise AssertionError(f"train_zoo_torch {key}: history {h}, checkpoints {checkpoint_steps(zoo, name)}")
+        val_batches = 4  # fit_online's default
+        print(f"scripts (a) ({dev}): train_zoo_torch admm2 + resunet, {steps} steps of {tb} in calls of 2, validation "
+              f"every 2 steps: " + "; ".join(f"{k} train {h['train_loss']} val {h['val_loss']} best step "
+                                             f"{h['best_step']} ({h['galaxies_per_sec']:.1f} gal/s)"
+                                             for k, h in hists.items()) + f"; solve launches {got}")
+        expect("train_zoo_torch", got, 2 * (steps + 2 * val_batches), 2 * steps)
+
+        # (b) export, then the method matrix against cli test of the same checkpoint
+        exported, res, cli_res = work / "exported", work / "results", work / "cli_results"
+        load_script("scripts/export_trained_torch.py").main(["--src", str(zoo), "--dst", str(exported)])
+        rb, admm2 = script("run_benchmark_torch"), tz.SPECS["admm2"][0]
+        n_gal, eb = sizes["n_gal"], sizes["eval_batch"]
+        _, got = counted(rb.main, ["--ckpt", str(exported), "--trained", str(work / "no_trained"), "--data", str(root),
+                                   "--result", str(res), "--n_gal", str(n_gal), "--batch", str(eb), "--only",
+                                   "No_Deconv", "Unrolled_ADMM_Gaussian(2)", "--skip_psf", "--skip_psnr",
+                                   "--device", dev])
+        # the shear sweep's batches, then the time sweep's: a warm-up batch and 3 timed sweeps of whole batches
+        expect("run_benchmark_torch", got, 2 * (len(SNRS) * -(-n_gal // eb) + 1 + 3 * max(1, n_gal // eb)))
+        _, got_cli = counted(cli.main, ["test", "--data_path", str(root), "--result_path", str(cli_res), "--n_gal",
+                                        str(n_gal), "--eval_batch_size", str(eb), "--methods",
+                                        "Unrolled_ADMM_Gaussian(2)", "--model_save_path", str(exported),
+                                        "--checkpoint_name", admm2, "--device", dev])
+        expect("cli test", got_cli, 2 * len(SNRS) * -(-n_gal // eb))
+        a, c = (json.loads((r / "Unrolled_ADMM_Gaussian(2)" / "results.json").read_text()) for r in (res, cli_res))
+        same = all(a[str(snr)]["rec_shear"] == c[str(snr)]["rec_shear"] for snr in SNRS)
+        table = _block((res / "RESULTS.md").read_text(), "BENCHMARK TABLE")
+        rows_ok = "| No_Deconv |" in table and "| Unrolled_ADMM_Gaussian(2) |" in table
+        print(f"scripts (b) ({dev}): export_trained_torch + run_benchmark_torch, No_Deconv and "
+              f"Unrolled_ADMM_Gaussian(2) over {n_gal} galaxies x {len(SNRS)} SNRs at B={eb}: shear rows equal to cli "
+              f"test's of the same checkpoint bit for bit: {same}; RESULTS.md's benchmark table between its markers "
+              f"with both rows: {rows_ok}; solve launches {got}, cli test {got_cli}")
+        if not (same and rows_ok):
+            raise AssertionError("run_benchmark_torch disagrees with cli test, or its tables are missing")
+
+        # (c) the reference protocol: 2 epochs of a fixed dataset, the save rule and best_epoch
+        rp, rp_save = script("reference_protocol_torch"), work / "refproto"
+        run = "RefProto_Gaussian_PnP_ADMM_2iters_MultiScale"
+        n_stamps, spc = sizes["n_stamps"], 4
+        _, got = counted(rp.main, ["--models", "2", "--epochs", "2", "--n_stamps", str(n_stamps), "--batch", str(tb),
+                                   "--split", "0.5", "--steps_per_call", str(spc), "--chunk", str(n_stamps),
+                                   "--save_path", str(rp_save), "--out", str(work / "refproto.json"), "--device", dev])
+        rep = json.loads((work / "refproto.json").read_text())["runs"][run]
+        saved, best = rp.saved_epochs(rep["val_loss"])
+        on_disk = sorted(checkpoint_steps(rp_save, run))
+        print(f"scripts (c) ({dev}): reference_protocol_torch, 2 epochs of {n_stamps} stamps (split 0.5, B={tb}): "
+              f"train {rep['train_loss']} val {rep['val_loss']}; checkpoints {on_disk}, the save rule's {saved}; best "
+              f"epoch {rep['best_epoch']}, best_epoch() {best_epoch(rp_save, run)}; solve launches {got}")
+        if not (np.isfinite(rep["train_loss"] + rep["val_loss"]).all() and on_disk == saved
+                and rep["best_epoch"] == best == best_epoch(rp_save, run)):
+            raise AssertionError("reference_protocol_torch's checkpoints or history disagree with its save rule")
+        steps_ep, val_b = (n_stamps // 2) // tb // spc * spc, (n_stamps - n_stamps // 2) // (8 * tb)
+        expect("reference_protocol_torch", got, 2 * 2 * (steps_ep + val_b), 2 * 2 * steps_ep)
+
+        # (d) sharded generation against generate_dataset
+        gs, (n_tr, n_te, chunk) = script("generate_sharded_torch"), sizes["sharded"]
+        common = ["--root", str(work / "sharded"), "--n_train", str(n_tr), "--n_test", str(n_te), "--chunk",
+                  str(chunk), "--device", dev]
+        t0 = time.perf_counter()
+        for shard in (0, 1):
+            gs.main(["worker", "--shard", str(shard), "--n_shards", "2", *common])
+        gs.main(["merge", *common])
+        sharded_s = time.perf_counter() - t0
+        direct = generate_dataset(work / "direct", n_train=n_tr, n_test=n_te, chunk=chunk, seed=31415,
+                                  cfg=sim.SimulationConfig(**sizes["sim"]), verbose=False, device=device)
+        files = sorted(str(f.relative_to(direct)) for f in direct.rglob("*") if f.is_file())
+        made = sorted(str(f.relative_to(work / "sharded")) for f in (work / "sharded").rglob("*")
+                      if f.is_file() and "_shards" not in f.parts)
+        differ = [f for f in files if (direct / f).read_bytes() != (work / "sharded" / f).read_bytes()]
+        print(f"scripts (d) ({dev}): generate_sharded_torch, 2 workers + merge, {n_tr} train + {n_te} test in chunks "
+              f"of {chunk} with every PSF set ({sharded_s:.2f} s): {len(files)} files against generate_dataset's, "
+              f"same names {made == files}, byte-identical except {differ}")
+        if made != files or differ:
+            raise AssertionError("the sharded tree differs from generate_dataset's")
+
+        # (e) the op profile (fp32: its full rows against phase 4's) and the throughput reconciliation
+        po, pb, reps = script("profile_ops_torch"), sizes["profile_batch"], sizes["profile_repeats"]
+        _, got = counted(po.main, ["--batch", str(pb), "--repeats", str(reps), "--dtype", "float32", "--out",
+                                   str(work / "op_profile.json"), "--device", dev])
+        loop = po.LOOPS[0]
+        expect("profile_ops_torch", got, n8 * (4 * (reps + 1) + 1 + max(reps // loop, 3) * loop))
+        prof = json.loads((work / "op_profile.json").read_text())
+        pipe = bench.bench_pipeline("float32", device, features=tuple(sizes["features"]))
+        comps = po.components(pipe, *(torch.as_tensor(a, device=device) for a in bench_inputs(pb)), torch.float32)
+        with torch.inference_mode(), fp32_only():
+            same_full = torch.equal(comps["full"][0]().cpu(), fp32["shear"])
+            _, fft_got = counted(comps["fftpath_fft"][0])
+        t = prof["timings_ms"]
+        print(f"scripts (e) ({dev}, {card}): profile_ops_torch fp32 B={pb}, {reps} calls each ({prof['clock']}): "
+              + ", ".join(f"{name} {v['ms_per_call']:.3f}" for name, v in t.items()) + f" ms; dispatch overhead "
+              f"{prof['dispatch_overhead_ms']:.3f} ms; full rows equal phase 4's bit for bit: {same_full}; solve "
+              f"launches {got}, one fftpath call {fft_got}")
+        expect("fftpath", fft_got, n8)
+        if not same_full:
+            raise AssertionError("profile_ops_torch's full pipeline disagrees with phase 4's")
+        rt = script("reconcile_throughput_torch")
+        src, ep = find_checkpoint(flagship_run, models)
+        sd8 = unpack_variables(restore_checkpoint(src, flagship_run, ep))
+        (rows, shears), got = counted(rt.reconcile, sd8, root, sizes["reconcile_n_gal"], device)
+        ga, gb = shears["A_eval_harness_fp32_b250"], shears["B_plus_batch256"]
+        k = min(len(ga), len(gb))
+        ab_err = float((np.abs(ga[:k] - gb[:k]) / (1 + np.abs(gb[:k]))).max())
+        print(f"scripts (e) ({dev}, {card}): reconcile_throughput_torch with phase 6's checkpoint over "
+              f"{sizes['reconcile_n_gal']} galaxies: "
+              + ", ".join(f"{label} {v['gal_per_sec']:.1f}" for label, v in rows.items())
+              + f" gal/s; A against B on {k} galaxies max |dg| / (1 + |g|) {ab_err:.3e} (tol {SCRIPT_SHEAR_TOL}), "
+              f"max |dg| / max |g| {_peak_rel(ga[:k], gb[:k]):.3e}; solve launches {got}")
+        if ab_err > SCRIPT_SHEAR_TOL:
+            raise AssertionError("reconcile's fp32 configurations A and B disagree")
+
+        # (f) scaling: under torchrun at world size 1 on the card (NCCL), alone on the CPU
+        argv = ["--steps", "3", "--n_iters", "2", "--per_device_batch", str(tb), "--device", dev]
+        if cuda:
+            stdout, _ = run_command([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                     "1", str(REPO / "scripts" / "scaling_torch.py"), *argv], DP_TIMEOUT_S)
+        else:
+            buf = __import__("io").StringIO()
+            with contextlib.redirect_stdout(buf):
+                script("scaling_torch").main(argv)
+            stdout = buf.getvalue()
+        m = re.search(r"^1 device\(s\): (\d+) gal/s train", stdout, re.M)
+        print(f"scripts (f) ({dev}): scaling_torch: " + " | ".join(stdout.strip().splitlines()))
+        if m is None or not int(m.group(1)) > 0:
+            raise AssertionError(f"scaling_torch printed {stdout!r}")
+
+        # (g) the science scripts: card against CPU
+        rho, n_trace = script("rho_trace_torch"), sizes["trace_batch"]
+        got_rep, got = counted(rho.trace_report, root, n_trace, zoo, models, device)
+        ref_rep = rho.trace_report(root, n_trace, zoo, models, "cpu")
+        rho_err = {lab: max(_peak_rel(st[key], ref_rep["models"][lab][key]) for key in
+                            ("rho_q10", "rho_median", "rho_q90", "rel_z_change_median"))
+                   for lab, st in got_rep["models"].items()}
+        expect("rho_trace_torch", got, n8 + 2)
+        mf = script("make_figures_torch")
+        sd_fig = unpack_variables(restore_checkpoint(models, mf.FLAGSHIP_RUN, latest_epoch(models, mf.FLAGSHIP_RUN)))
+        arrays, got_mf = counted(mf.model_arrays, sd_fig, root, 100, device)
+        ref_arrays = mf.model_arrays(sd_fig, root, 100, "cpu")
+        trace_err = {f: _peak_rel(arrays["traces"][f], ref_arrays["traces"][f]) for f in ("x", "z", "u", "rho")}
+        expect("make_figures_torch", got_mf, n8)
+        ce, cn = script("cross_estimator_torch"), sizes["cross_n_gal"]
+        snrs = [20, 100, 200]
+        got_ce, ref_ce = (ce.cross_report(root, cn, snrs, d) for d in (device, "cpu"))
+        g_num, r_num = np.array(_numbers(got_ce)), np.array(_numbers(ref_ce))
+        ce_err = float((np.abs(g_num - r_num) / (1 + np.abs(r_num))).max())
+        ps = script("population_sweep_torch")
+        _, got_ps = counted(ps.main, ["--n_gal", str(sizes["pop_n_gal"]), "--chunk", str(sizes["pop_n_gal"]),
+                                      "--configs", "default", "clumpy", "--trained", str(models), "--out",
+                                      str(work / "population.json"), "--device", dev])
+        pop = json.loads((work / "population.json").read_text())
+        expect("population_sweep_torch", got_ps, n8 * 2 * 2)
+        print(f"scripts (g) ({dev}): rho_trace_torch on {n_trace} test galaxies, card against CPU, max |d| / max |CPU| "
+              + ", ".join(f"{label} {v:.3e}" for label, v in rho_err.items())
+              + f" (tol {REC_REL_TOL}); make_figures_torch's trace arrays "
+              + ", ".join(f"{f} {v:.3e}" for f, v in trace_err.items()) + f" (tol {REC_REL_TOL}); "
+              f"cross_estimator_torch on {cn} galaxies at SNR {snrs}: every statistic max |d| / (1 + |CPU|) "
+              f"{ce_err:.3e} (tol {SCRIPT_STAT_TOL}); population_sweep_torch: " + "; ".join(
+                  f"{name} distance {v['fingerprint_dist']:.3f}" for name, v in pop["configs"].items())
+              + f"; solve launches rho {got}, figures {got_mf}, population {got_ps}")
+        if not (set(got_rep["models"]) == {"Unrolled_ADMM_Gaussian(8)", "Unrolled_ADMM_Gaussian(2)"}
+                and max(rho_err.values()) <= REC_REL_TOL and max(trace_err.values()) <= REC_REL_TOL
+                and ce_err <= SCRIPT_STAT_TOL and np.isfinite(_numbers(pop["configs"])).all()):
+            raise AssertionError("the science scripts on the device disagree with the CPU, or found no checkpoint")
+    seconds = time.perf_counter() - t_phase
+    print(f"scripts ({card}): phase 13 took {seconds:.1f} s; solve launches forward {launches['forward']}, backward "
+          f"{launches['backward']}")
+    return {"seconds": seconds, "launches": launches, "ab_err": ab_err, "profile": prof, "reconcile": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -1627,7 +1904,7 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    card = card_line()
+    card = card_name_and_power_limit()
     print(f"device: {kind}; count {torch.cuda.device_count()}; nvidia-smi: {card}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -1651,6 +1928,7 @@ def main() -> int:
         dp = phase_data_parallel(device, card, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results",
                                  pathlib.Path(tmp) / "dp", train)
         measure = phase_measurement(device, card, fp32, pathlib.Path(tmp) / "data", models)
+        scripts = phase_scripts(device, card, fp32, pathlib.Path(tmp) / "data", models, pathlib.Path(tmp) / "scripts")
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
           f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
           "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
@@ -1674,15 +1952,21 @@ def main() -> int:
           + ", ".join(f"{dt} B={b} {v:.1f}" for (dt, b), v in measure["rates"].items()) + " gal/s; mfu_vs_dtype_peak "
           + ", ".join(f"{dt} {r['mfu_vs_dtype_peak']:.4f}" for dt, r in measure["mfu"].items())
           + f"; phase 12 {measure['seconds']:.1f} s")
+    timings = scripts["profile"]["timings_ms"]
+    print(f"scripts ({card}): op profile fp32 B={BATCH} full {timings['full']['ms_per_call']:.3f} ms, loop8 "
+          f"{timings['loop8']['ms_per_call']:.3f} ms a call; reconcile "
+          + ", ".join(f"{k} {v['gal_per_sec']:.1f}" for k, v in scripts["reconcile"].items())
+          + f" gal/s; phase 13 {scripts['seconds']:.1f} s")
     # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training, the flagship's eval sweeps,
     # the online run, the device-resident epoch, phase 11's data-parallel epoch, steps and sweeps (each rank's),
-    # and phase 12's in-process bench run, MFU reports and tutorial
+    # phase 12's in-process bench run, MFU reports and tutorial, and phase 13's scripts in this process
     kernel["launches"] = (fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
                           + online["forward_launches"] + resident["forward_launches"] + dp["launches"][0]
                           + sum(f for f, _ in dp["b_launches"]) + sum(sum(r["launches"]) for r in dp["sweeps"].values())
-                          + measure["launches"])
+                          + measure["launches"] + scripts["launches"]["forward"])
     kernel_bwd["launches"] = (train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
-                              + dp["launches"][1] + sum(b for _, b in dp["b_launches"]))
+                              + dp["launches"][1] + sum(b for _, b in dp["b_launches"])
+                              + scripts["launches"]["backward"])
 
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

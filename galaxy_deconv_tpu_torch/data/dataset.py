@@ -15,6 +15,7 @@ mean of each obs stamp, as the reference does per sample.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -104,21 +105,96 @@ def train_val_indices(n: int, train_val_split: float = 0.8, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _append(store: dict, out: dict):
-    for k in FIELDS:
-        store.setdefault(k, []).append(out[k].float().cpu().numpy())
+SNRS = (20, 40, 60, 80, 100, 150, 200)  # the fixed-SNR test variants
+PSF_ERRS = (0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2)  # the perturbed-PSF sets of each kind
 
 
-def _write(d: pathlib.Path, store: dict):
-    d.mkdir(parents=True, exist_ok=True)
-    for k, chunks in store.items():
-        np.save(d / f"{k}.npy", np.concatenate(chunks, axis=0))
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
 
 
 def _chunk_seeds(seq: np.random.SeedSequence, total: int, chunk: int) -> list[tuple[int, int]]:
     """(seed, size) of each chunk of ``total`` samples, the seeds from ``seq``'s children."""
     sizes = [min(chunk, total - s) for s in range(0, total, chunk)]
     return [(int(c.generate_state(1, np.uint64)[0]), n) for c, n in zip(seq.spawn(len(sizes)), sizes)]
+
+
+def chunk_plan(seed: int, n_train: int, n_test: int, chunk: int) -> tuple[list, list]:
+    """The (seed, size) of every train chunk and of every test chunk that
+    :func:`generate_dataset` renders for these arguments: the seeds of
+    ``numpy.random.SeedSequence(seed)``'s two children's children."""
+    train_seq, test_seq = np.random.SeedSequence(seed).spawn(2)
+    return _chunk_seeds(train_seq, n_train, chunk), _chunk_seeds(test_seq, n_test, chunk)
+
+
+def write_split(d: pathlib.Path, keys, cfg: sim.SimulationConfig, device, sampler=sim.simulate_batch,
+                label: Optional[str] = None) -> None:
+    """Render ``sampler``'s :data:`FIELDS` for each (seed, size) of ``keys``
+    and write them stacked to ``d/<field>.npy`` (:func:`write_chunks`);
+    progress under ``label``."""
+    total = sum(n for _, n in keys)
+
+    def chunks():
+        done = 0
+        for k, n in keys:
+            out = sampler(k, n, cfg, device)
+            yield {f: _np(out[f]) for f in FIELDS}
+            done += n
+            if label:
+                print(f"\r{label} {done}/{total}", end="", flush=True)
+
+    write_chunks(d, chunks(), total)
+    if label:
+        print()
+
+
+def render_test_chunk(seed: int, n: int, cfg: sim.SimulationConfig, device, snrs=SNRS, shear_errs=PSF_ERRS,
+                      fwhm_errs=PSF_ERRS) -> dict:
+    """Every test array of one chunk: the random-SNR :data:`FIELDS`, each
+    fixed-SNR variant's ``obs_{snr}`` and ``gt_{snr}`` (same scenes and noise,
+    the flux scaled) and each perturbed-PSF set ``psf_{kind}_err_{e}`` (same
+    scenes, one sign draw), all from ``seed``."""
+    out = sim.simulate_batch(seed, n, cfg, device)
+    blob = {f: _np(out[f]) for f in FIELDS}
+    for snr in snrs:
+        o = sim.simulate_batch_at_snr(seed, n, float(snr), cfg, device)
+        blob[f"obs_{snr}"], blob[f"gt_{snr}"] = _np(o["obs"]), _np(o["gt"])
+    for kind, errs in (("shear", shear_errs), ("fwhm", fwhm_errs)):
+        for e in errs:
+            blob[f"psf_{kind}_err_{e}"] = _np(sim.simulate_perturbed_psfs(seed, n, cfg, device=device,
+                                                                          **{f"{kind}_err": float(e)}))
+    return blob
+
+
+def write_chunks(d: pathlib.Path, chunks, total: int) -> None:
+    """Write each array of the chunk dicts ``chunks``, stacked along the first
+    axis to ``total`` rows, to ``d/<name>.npy``: a ``.npy`` header, then each
+    chunk's rows appended as it comes, one chunk in memory at a time (the
+    bytes ``np.save`` of the stacked array writes)."""
+    d.mkdir(parents=True, exist_ok=True)
+    with contextlib.ExitStack() as stack:
+        files = {}
+        for blob in chunks:
+            for name, a in blob.items():
+                if name not in files:
+                    files[name] = stack.enter_context(open(d / f"{name}.npy", "wb"))
+                    np.lib.format.write_array_header_1_0(files[name], {
+                        "descr": np.lib.format.dtype_to_descr(a.dtype), "fortran_order": False,
+                        "shape": (total, *a.shape[1:])})
+                np.ascontiguousarray(a).tofile(files[name])
+
+
+def dataset_info(n_train: int, n_test: int, seed: int, cfg: sim.SimulationConfig, **task) -> dict:
+    """A tree's ``info.json``: the sizes, the optics, the seed, ``task``'s
+    entries (the variants, or the task's name) and the noise."""
+    return dict(n_train=n_train, n_test=n_test, fov_pixels=cfg.fov_pixels, pixel_scale=cfg.pixel_scale,
+                upsample=cfg.upsample, seed=seed, **task, noise_sigma=sim.noise_sigma(cfg.pixel_scale),
+                generator="galaxy_deconv_tpu_torch.data.simulate")
+
+
+def write_info(root: pathlib.Path, info: dict) -> None:
+    with open(root / "info.json", "w") as f:
+        json.dump(info, f, indent=1)
 
 
 def generate_dataset(
@@ -128,9 +204,9 @@ def generate_dataset(
     cfg: sim.SimulationConfig = sim.SimulationConfig(),
     seed: int = 31415,
     chunk: int = 128,
-    snrs=(20, 40, 60, 80, 100, 150, 200),
-    shear_errs=(0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2),
-    fwhm_errs=(0.003, 0.005, 0.01, 0.02, 0.03, 0.05, 0.07, 0.1, 0.15, 0.2),
+    snrs=SNRS,
+    shear_errs=PSF_ERRS,
+    fwhm_errs=PSF_ERRS,
     verbose: bool = True,
     device="cuda",
 ) -> pathlib.Path:
@@ -139,68 +215,24 @@ def generate_dataset(
     perturbed-PSF sets (the reference generate_data.py's layout).
 
     ``numpy.random.SeedSequence(seed)`` gives the train and the test split a
-    child each, and those give one seed per chunk.  Every test chunk's seed
-    renders its random-SNR stamps, each fixed-SNR variant (same scenes and
-    noise, the flux scaled) and each perturbed-PSF set (same scenes, one sign
-    draw), so the variants hold the same galaxies; nothing of the train split
-    comes from it.  The same seed on the same kind of device writes the same
-    files (see :mod:`galaxy_deconv_tpu_torch.data.simulate` on the streams).
+    child each, and those give one seed per chunk (:func:`chunk_plan`).
+    Every test chunk's seed renders its random-SNR stamps, each fixed-SNR
+    variant and each perturbed-PSF set (:func:`render_test_chunk`), so the
+    variants hold the same galaxies; nothing of the train split comes from
+    it.  The same seed on the same kind of device writes the same files (see
+    :mod:`galaxy_deconv_tpu_torch.data.simulate` on the streams).
     """
     dev = resolve_device(device)
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
-    train_seq, test_seq = np.random.SeedSequence(seed).spawn(2)
-
-    store: dict = {}
-    done = 0
-    for k, n in _chunk_seeds(train_seq, n_train, chunk):
-        _append(store, sim.simulate_batch(k, n, cfg, dev))
-        done += n
-        if verbose:
-            print(f"\rtrain {done}/{n_train}", end="", flush=True)
-    _write(root / "train", store)
+    train_keys, test_keys = chunk_plan(seed, n_train, n_test, chunk)
+    write_split(root / "train", train_keys, cfg, dev, label="train" if verbose else None)
+    write_chunks(root / "test", (render_test_chunk(k, n, cfg, dev, snrs, shear_errs, fwhm_errs)
+                                 for k, n in test_keys), n_test)
     if verbose:
-        print()
-
-    test_keys = _chunk_seeds(test_seq, n_test, chunk)
-    store = {}
-    for k, n in test_keys:
-        _append(store, sim.simulate_batch(k, n, cfg, dev))
-    _write(root / "test", store)
-
-    for snr in snrs:
-        store = {}
-        for k, n in test_keys:
-            _append(store, sim.simulate_batch_at_snr(k, n, float(snr), cfg, dev))
-        d = root / "test"
-        np.save(d / f"obs_{snr}.npy", np.concatenate(store["obs"], axis=0))
-        np.save(d / f"gt_{snr}.npy", np.concatenate(store["gt"], axis=0))
-        if verbose:
-            print(f"test snr={snr} done")
-
-    for kind, errs in (("shear", shear_errs), ("fwhm", fwhm_errs)):
-        for e in errs:
-            chunks = [sim.simulate_perturbed_psfs(k, n, cfg, device=dev, **{f"{kind}_err": float(e)}).cpu().numpy()
-                      for k, n in test_keys]
-            np.save(root / "test" / f"psf_{kind}_err_{e}.npy", np.concatenate(chunks, axis=0))
-    if verbose:
-        print("perturbed psf sets done")
-
-    info = dict(
-        n_train=n_train,
-        n_test=n_test,
-        fov_pixels=cfg.fov_pixels,
-        pixel_scale=cfg.pixel_scale,
-        upsample=cfg.upsample,
-        seed=seed,
-        snrs=list(snrs),
-        shear_errs=list(shear_errs),
-        fwhm_errs=list(fwhm_errs),
-        noise_sigma=sim.noise_sigma(cfg.pixel_scale),
-        generator="galaxy_deconv_tpu_torch.data.simulate",
-    )
-    with open(root / "info.json", "w") as f:
-        json.dump(info, f, indent=1)
+        print(f"test split, {len(snrs)} SNR variants and {len(shear_errs) + len(fwhm_errs)} PSF sets done")
+    write_info(root, dataset_info(n_train, n_test, seed, cfg, snrs=list(snrs), shear_errs=list(shear_errs),
+                                  fwhm_errs=list(fwhm_errs)))
     return root
 
 
@@ -223,31 +255,9 @@ def generate_dataset_denoise(
     dev = resolve_device(device)
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
-    for split, n_split, seq in zip(("train", "test"), (n_train, n_test), np.random.SeedSequence(seed).spawn(2)):
-        store: dict = {}
-        done = 0
-        for k, n in _chunk_seeds(seq, n_split, chunk):
-            _append(store, sim.simulate_batch_denoise(k, n, cfg, dev))
-            done += n
-            if verbose:
-                print(f"\r{split} {done}/{n_split}", end="", flush=True)
-        _write(root / split, store)
-        if verbose:
-            print()
-
-    info = dict(
-        n_train=n_train,
-        n_test=n_test,
-        fov_pixels=cfg.fov_pixels,
-        pixel_scale=cfg.pixel_scale,
-        upsample=cfg.upsample,
-        seed=seed,
-        task="Denoise",
-        noise_sigma=sim.noise_sigma(cfg.pixel_scale),
-        generator="galaxy_deconv_tpu_torch.data.simulate",
-    )
-    with open(root / "info.json", "w") as f:
-        json.dump(info, f, indent=1)
+    for split, keys in zip(("train", "test"), chunk_plan(seed, n_train, n_test, chunk)):
+        write_split(root / split, keys, cfg, dev, sim.simulate_batch_denoise, label=split if verbose else None)
+    write_info(root, dataset_info(n_train, n_test, seed, cfg, task="Denoise"))
     return root
 
 

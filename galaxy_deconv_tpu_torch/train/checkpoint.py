@@ -89,3 +89,15 @@ def latest_epoch(save_path, model_name: str) -> int:
     pat = re.compile(re.escape(model_name) + r"_(\d+)epochs$")
     epochs = [int(m.group(1)) for p in root.iterdir() if (m := pat.match(p.name))]
     return max(epochs, default=0)
+
+
+def find_checkpoint(model_name: str, *save_paths) -> tuple[Optional[pathlib.Path], int]:
+    """The first of ``save_paths`` holding a checkpoint of ``model_name`` and
+    its :func:`best_epoch`; ``(None, 0)`` when none does (the scripts' lookup
+    of a run in a scratch directory first, then in a directory of exported
+    checkpoints)."""
+    for path in save_paths:
+        epoch = best_epoch(path, model_name)
+        if epoch:
+            return pathlib.Path(path), epoch
+    return None, 0

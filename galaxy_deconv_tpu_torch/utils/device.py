@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -26,3 +27,13 @@ def fp32_only():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def card_name_and_power_limit() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a card
+    set below its maximum power runs slower under load, so every timing
+    names it)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]

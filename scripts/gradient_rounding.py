@@ -36,6 +36,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
+from galaxy_deconv_tpu_torch.utils.device import card_name_and_power_limit  # noqa: E402
 from galaxy_deconv_tpu_torch.data import GalaxyDataset  # noqa: E402
 
 
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
     n_iters, features = cs.FLAGSHIP["n_iters"], cs.FLAGSHIP["features"]
     with tempfile.TemporaryDirectory(prefix="gradient_rounding_") as tmp:
         batch = GalaxyDataset(cs.write_dataset(pathlib.Path(tmp), cs.N_STAMPS)).batch(np.arange(cs.N_CPU_CHECK))
-    print(f"{cs.card_line()}; torch {torch.__version__}; {cs.N_CPU_CHECK} galaxies, n_iters {n_iters}, "
+    print(f"{card_name_and_power_limit()}; torch {torch.__version__}; {cs.N_CPU_CHECK} galaxies, n_iters {n_iters}, "
           f"features {features}; worst per-parameter gradient rel err (parameter)")
     sound, control = [], []
     for w in range(args.weight_seeds):

@@ -32,7 +32,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import HBM_BYTES_PER_S, SPLITS, _cplx, backward_at_splits, backward_splits, card_line, graph_ms  # noqa: E402
+from chip_smoke import HBM_BYTES_PER_S, SPLITS, _cplx, backward_at_splits, backward_splits, graph_ms  # noqa: E402
+from galaxy_deconv_tpu_torch.utils.device import card_name_and_power_limit  # noqa: E402
 from galaxy_deconv_tpu_torch.ops import x_update as xu  # noqa: E402
 
 FLOOR_SHAPE = (3, 5, 7)
@@ -46,7 +47,7 @@ def main() -> int:
         print("profile_solve_kernels: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    card = card_line()
+    card = card_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; device us per call in a CUDA "
           f"graph of {N_ITER}")
     rng = np.random.default_rng(7)

@@ -24,8 +24,8 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
-from chip_smoke import card_line  # noqa: E402
 from galaxy_deconv_tpu_torch.data import simulate as sim  # noqa: E402
+from galaxy_deconv_tpu_torch.utils.device import card_name_and_power_limit  # noqa: E402
 from profile_torch_pipeline import profile  # noqa: E402
 
 CHUNK = 256  # cli generate's default chunk
@@ -43,7 +43,7 @@ def main() -> int:
         print("profile_torch_generate: no CUDA device is available", file=sys.stderr)
         return 1
     cfg = sim.SimulationConfig()
-    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}; pupil {cfg.pupil_n} on a "
+    print(f"card: {card_name_and_power_limit()}; torch {torch.__version__}, CUDA {torch.version.cuda}; pupil {cfg.pupil_n} on a "
           f"{cfg.pupil_pad} grid, {sim._sub_batch(cfg)} pupils per sub-batch, chunks of {CHUNK}")
     seeds = iter(range(1000))
     for label, fn in (("simulate_batch", lambda: sim.simulate_batch(next(seeds), CHUNK, cfg, "cuda")),

@@ -33,7 +33,8 @@ from torch.profiler import profile as profile_ctx
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from chip_smoke import BATCH, TRAIN_BATCH, bench_inputs, card_line, galaxy_stamps  # noqa: E402
+from chip_smoke import BATCH, TRAIN_BATCH, bench_inputs, galaxy_stamps  # noqa: E402
+from galaxy_deconv_tpu_torch.utils.device import card_name_and_power_limit  # noqa: E402
 from galaxy_deconv_tpu_torch.eval import make_apply_fn  # noqa: E402
 from galaxy_deconv_tpu_torch.losses import MultiScaleLoss  # noqa: E402
 from galaxy_deconv_tpu_torch.metrics import estimate_shear  # noqa: E402
@@ -155,7 +156,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_pipeline: no CUDA device is available", file=sys.stderr)
         return 1
-    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off inside the "
+    print(f"card: {card_name_and_power_limit()}; torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off inside the "
           f"pipeline's calls, the train step and make_apply_fn's calls")
     for dtype in (torch.float32, torch.bfloat16):
         profile_dtype(dtype)

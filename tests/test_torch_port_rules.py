@@ -4,8 +4,8 @@ Every module of galaxy_deconv_tpu_torch, chip_smoke.py and the port's
 scripts and tutorials (``scripts/*_torch.py`` but the bf16 cross-check,
 ``examples/*_torch.py``) import with jax, flax, orbax and the JAX package
 blocked, and chip_smoke.py's pipeline,
-training (through ``cli train``), generate, test, zoo, trainers and
-data-parallel phases and the package's ``python -m`` entry point
+training (through ``cli train``), generate, test, zoo, trainers,
+data-parallel, measurement and scripts phases and the package's ``python -m`` entry point
 (``generate`` then ``test``) run on the CPU (at a tiny size, through the plain
 x-update solve and its plain backward) with them blocked, the data-parallel
 phase's ranks too.  chip_smoke.py exits non-zero and prints no
@@ -323,3 +323,51 @@ print("measurement phase ok")
     res = run_blocked(body, timeout=600, env={**ENV, "PYTHONPATH": str(site), "OMP_NUM_THREADS": "2"})
     assert res.returncode == 0, res.stderr[-4000:]
     assert "measurement phase ok" in res.stdout and "equal phase 4's bit for bit: True" in res.stdout
+
+
+def test_chip_smoke_scripts_phase_runs_on_cpu_without_jax(tmp_path):
+    """Phase 13 at the smallest sizes in this JAX-blocked process: every
+    script of the reproduction path, the measurement scripts (``scaling_torch``
+    alone, with no launcher) and the science scripts, on a tree ``cli
+    generate`` writes at a 16-sample pupil and a flagship checkpoint of seed-0
+    weights, the widths narrowed through the phase's ``sizes``."""
+    body = f"""
+import importlib.util, pathlib, time, torch
+from galaxy_deconv_tpu_torch.train.checkpoint import save_checkpoint
+t0 = time.perf_counter()
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+torch.set_num_threads(2)
+cpu = torch.device("cpu")
+tmp = pathlib.Path({str(tmp_path)!r})
+w = (4, 8, 8, 8)
+cs.cli.main(["generate", "--data_path", str(tmp / "data"), "--n_train", "8", "--n_test", "16", "--pupil_n", "16",
+             "--chunk", "16", "--seed", "0", "--device", "cpu", "--errs", "0.01"])
+state, _ = cs.create_train_state(cs.UnrolledADMMGaussian(n_iters=8, features=w), 0)
+save_checkpoint(tmp / "models", "Gaussian_PnP_ADMM_8iters_MultiScale", 1, state)
+fp32 = cs.phase_pipeline_fp32(cpu, B=4, n_iters=8, features=w, n_check=2)
+sizes = {{"features": w, "denoiser_features": w, "sim": {{"pupil_n": 16, "pupil_pad": 32}}, "train_batch": 2,
+         "n_stamps": 32, "sharded": (4, 8, 4), "n_gal": 8, "eval_batch": 4, "profile_batch": 4, "profile_repeats": 1,
+         "reconcile_n_gal": 8, "trace_batch": 4, "cross_n_gal": 8, "pop_n_gal": 4}}
+load_script = cs.load_script
+
+
+def narrow_load_script(path):  # the reconciliation's batches cut to A-C's 4, 8, 8 and D's 8
+    mod = load_script(path)
+    if path.endswith("reconcile_throughput_torch.py"):
+        mod.HARNESS_CONFIGS = {{k: (b, dt) for (k, (_, dt)), b in zip(mod.HARNESS_CONFIGS.items(), (4, 8, 8))}}
+        mod.RESIDENT_BATCH = 8
+    return mod
+
+
+cs.load_script = narrow_load_script
+res = cs.phase_scripts(cpu, "cpu", fp32, tmp / "data", tmp / "models", tmp / "scripts", sizes)
+assert res["launches"] == {{"forward": 0, "backward": 0}}  # CPU tensors take the plain versions
+print(f"scripts phase ok in {{time.perf_counter() - t0:.1f}} s")
+"""
+    res = run_blocked(body, timeout=600, env={**ENV, "OMP_NUM_THREADS": "2"})
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "scripts phase ok" in res.stdout, res.stdout[-2000:]
+    for line in ("equal to cli test's of the same checkpoint bit for bit: True", "byte-identical except []",
+                 "full rows equal phase 4's bit for bit: True"):
+        assert line in res.stdout
