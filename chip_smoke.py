@@ -132,6 +132,21 @@ Phases, each printing its own lines; any fault raises and exits non-zero:
              trace arrays and ``cross_estimator_torch``'s statistics, card
              against CPU, and ``population_sweep_torch`` on two populations;
              the phase's seconds.
+14. trained  the JAX package's trained flagship (epoch 7000 of
+             ``Gaussian_PnP_ADMM_8iters_MultiScale``) from ``trained_port/``,
+             with the JAX package's outputs on 64 fixed stamps
+             (``trained_port/flagship_goldens.npz``): (a) restored through
+             ``train/checkpoint.py`` into ``build_pipeline``, its tensors equal
+             to the file's (a missing checkpoint fails the phase); (b) fp32
+             reconstructions and shears against JAX's (TRAINED_REC_REL_TOL,
+             TRAINED_SHEAR_TOL), 8 solve launches, and a TF32 control that must
+             fail them; (c) bf16 nets against JAX's bf16 nets; (d) the stamps
+             written as a COSMOS-layout tree by ``generate_galsim.
+             write_packed_dataset``, ``cli test --checkpoint_name`` on it
+             against JAX's shears, and ``generate_galsim.observe`` on the card
+             against the CPU; (e) ``cli test --test shear`` of the trained
+             flagship on phase 7's tree, its median |g - g_true| per SNR
+             beside phase 8's seed-0 flagship's; the phase's seconds.
 
 The last three lines are the card's name and power limit, one JSON object
 with each kernel's numbers, and the result line
@@ -163,6 +178,7 @@ from galaxy_deconv_tpu_torch import bench, cli
 from galaxy_deconv_tpu_torch.bench import bench_inputs
 from galaxy_deconv_tpu_torch.data import FIELDS, GalaxyDataset, generate_dataset, train_val_indices
 from galaxy_deconv_tpu_torch.data import simulate as sim
+from galaxy_deconv_tpu_torch.data.generate_galsim import observe, write_packed_dataset
 from galaxy_deconv_tpu_torch.eval import harness
 from galaxy_deconv_tpu_torch.losses import MultiScaleLoss, build_loss, get_model_name
 from galaxy_deconv_tpu_torch.metrics.shear import estimate_shear, fpfs_moments
@@ -304,6 +320,25 @@ COMMAND_TIMEOUT_S = 240  # each cli bench process, its start-up included
 SCRIPT_SHEAR_TOL = 1e-4
 SCRIPT_STAT_TOL = 1e-4
 REPO = pathlib.Path(__file__).resolve().parent
+# Phase 14, the trained flagship.  trained_port/ holds the JAX package's trained flagship in the port's format
+# (scripts/trained_to_port.py) and the JAX package's outputs on 64 fixed stamps (scripts/flagship_goldens.py).
+# Limits fixed before the first reading on the card, from two readings: the port on the CPU against these
+# goldens reads 6.3e-6 to 7.3e-6 (reconstruction, max |d| / max |JAX|; 2 to 8 threads) and 2.9e-6 to 3.0e-6 (g,
+# max |dg| / (1 + |g|)); phase 4's card against the CPU reads 1.13e-5 on seed-0 weights (NVIDIA H100 80GB HBM3,
+# 700 W), its TF32 control 6.5e-3.  So the card against JAX should read ~2e-5 on the reconstruction; a limit of
+# 1e-4 leaves 5x and stays 60x under a TF32 run.  With trained weights R1E does not cancel: on the CPU g moves by half the reconstruction's
+# relative error (2.9e-6 against 6.3e-6), so g is held at 1e-4 (1 + |g|), 100x tighter than SHEAR_TOL.
+TRAINED_REC_REL_TOL = 1e-4
+TRAINED_SHEAR_TOL = 1e-4
+# bf16 nets against the JAX package's bf16 nets: the frameworks round bf16 convolutions differently, so two bf16
+# runs differ about as much as bf16 from fp32 (the JAX bf16 golden against its fp32 golden: 2.85e-2).  The port's
+# CPU reads 2.48e-2 against the bf16 golden; the limit is tests/test_torch_model.py's BF16_REL for this checkpoint.
+TRAINED_BF16_REL_TOL = 6e-2
+# generate_galsim.observe computes in float64 and rounds to float32: card against CPU at 1e-6 of each peak.
+OBSERVE_REL_TOL = 1e-6
+TRAINED_DIR = REPO / "trained_port"
+TRAINED_RUN = "Gaussian_PnP_ADMM_8iters_MultiScale"
+COSMOS_SNR = 20  # the label of the goldens' one fixed-SNR variant in the COSMOS-layout tree
 
 
 def _event_ms(fn, n: int) -> float:
@@ -1897,6 +1932,145 @@ def phase_scripts(device, card: str, fp32: dict, root: pathlib.Path, models: pat
     return {"seconds": seconds, "launches": launches, "ab_err": ab_err, "profile": prof, "reconcile": rows}
 
 
+def _shear_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"shears of shape {got.shape} (want {want.shape}), finite {np.isfinite(got).all()}")
+    return float((np.abs(got - want) / (1 + np.abs(want))).max())
+
+
+def phase_trained(device, card: str, root: pathlib.Path, seed0: pathlib.Path, work: pathlib.Path,
+                  n_golden: int = 64, n_gal: int = 1024, batch: int = EVAL_BATCH, snrs=SNRS) -> dict:
+    """Phase 14, the JAX package's trained flagship from ``trained_port/``:
+    (a) restored through the port's checkpoint path into ``build_pipeline``;
+    (b) fp32 with shear on the first ``n_golden`` golden stamps against the JAX
+    package's outputs, and a TF32 control; (c) bf16 against JAX's bf16; (d) the
+    goldens as a COSMOS-layout tree (``generate_galsim.write_packed_dataset``)
+    through ``cli test``, and ``generate_galsim.observe`` on the device against
+    the CPU; (e) the ``cli test`` shear sweep on phase 7's tree ``root``, its
+    median |g - g_true| per SNR beside the seed-0 flagship's in phase 8's
+    results ``seed0``.  Outputs under ``work``."""
+    t_phase = time.perf_counter()
+    cuda, dev, method = device.type == "cuda", device.type, "Unrolled_ADMM_Gaussian(8)"
+    per_forward = FLAGSHIP["n_iters"] if cuda else 0
+    launches = {}
+
+    # (a) the checkpoint, never seed weights in its place
+    epoch = best_epoch(TRAINED_DIR, TRAINED_RUN)
+    if not epoch:
+        raise FileNotFoundError(f"no checkpoint of {TRAINED_RUN} under {TRAINED_DIR}")
+    sd = unpack_variables(restore_checkpoint(TRAINED_DIR, TRAINED_RUN, epoch))
+    pipe = build_pipeline(device, state_dict=sd)
+    loaded = {k: v.cpu() for k, v in pipe.model.state_dict().items()}
+    if loaded.keys() != sd.keys() or not all(torch.equal(loaded[k], sd[k]) for k in sd):
+        raise AssertionError("the pipeline's tensors differ from the checkpoint file's")
+    g = np.load(TRAINED_DIR / "flagship_goldens.npz")
+    if str(g["checkpoint"]) != f"{TRAINED_RUN}_{epoch}epochs":
+        raise AssertionError(f"the goldens are of {g['checkpoint']}, the checkpoint is epoch {epoch}")
+    gold = {k: g[k][:n_golden] for k in ("obs", "psf", "gt", "alpha", "rec", "shear", "rec_bf16", "shear_bf16")}
+    n_params = sum(t.numel() for k, t in sd.items() if "running_" not in k and "num_batches" not in k)
+    print(f"trained (a): {TRAINED_RUN} epoch {epoch} from {TRAINED_DIR.name}/, {n_params:,} parameters and "
+          f"{len(sd)} tensors, the pipeline's equal to the file's; goldens: {n_golden} stamps")
+
+    # (b) fp32 with shear against the JAX package's
+    inputs = [gold[k] for k in ("obs", "psf", "alpha")]
+    xu.x_update_solve.launches = 0
+    rec = pipe.reconstruct(*inputs)
+    shear = estimate_shear(rec)
+    _sync(device)
+    launches["fp32"] = xu.x_update_solve.launches
+    rec, shear = rec.cpu(), shear.cpu()
+    rec_rel, shear_err = _peak_rel(rec, gold["rec"]), _shear_err(shear, gold["shear"])
+    print(f"trained (b) ({dev}): fp32 against the JAX package's goldens: rec max |d| / max |JAX| {rec_rel:.3e} "
+          f"(tol {TRAINED_REC_REL_TOL}), g max |dg| / (1 + |g|) {shear_err:.3e} (tol {TRAINED_SHEAR_TOL}); "
+          f"x_update_solve launches per forward {launches['fp32']}")
+    if launches["fp32"] != per_forward:
+        raise AssertionError(f"x_update_solve launched {launches['fp32']} times in one forward, expected {per_forward}")
+    if not (rec_rel <= TRAINED_REC_REL_TOL and shear_err <= TRAINED_SHEAR_TOL):
+        raise AssertionError("the trained flagship disagrees with the JAX package's goldens")
+    if cuda:
+        # the control bypasses Pipeline, whose calls turn TF32 off
+        with tf32_on(), torch.inference_mode():
+            tf32_rec = pipe.model(*(torch.as_tensor(a, device=device) for a in inputs)).cpu()
+        tf32_rel = _peak_rel(tf32_rec, gold["rec"])
+        print(f"trained (b) control: the model called directly with TF32 on: rec max |d| / max |JAX| {tf32_rel:.3e} "
+              f"(must exceed the tol {TRAINED_REC_REL_TOL})")
+        if tf32_rel <= TRAINED_REC_REL_TOL:
+            raise AssertionError("the trained reconstruction check cannot tell a TF32 run from an fp32 one")
+
+    # (c) bf16 nets against the JAX package's bf16 nets
+    pipe_bf16 = build_pipeline(device, dtype=torch.bfloat16, state_dict=sd)
+    xu.x_update_solve.launches = 0
+    rec_bf16 = pipe_bf16.reconstruct(*inputs).float()
+    shear_bf16 = estimate_shear(rec_bf16)
+    _sync(device)
+    launches["bf16"] = xu.x_update_solve.launches
+    bf16_rel = _peak_rel(rec_bf16.cpu(), gold["rec_bf16"])
+    bf16_dg = float(np.abs(shear_bf16.cpu().numpy() - gold["shear_bf16"]).max())
+    print(f"trained (c) ({dev}): bf16 nets against the JAX package's bf16 goldens: rec max |d| / max |JAX| "
+          f"{bf16_rel:.3e} (tol {TRAINED_BF16_REL_TOL}), g max |dg| {bf16_dg:.3e} (printed, not held); x_update_solve "
+          f"launches {launches['bf16']}")
+    if launches["bf16"] != per_forward or not bf16_rel <= TRAINED_BF16_REL_TOL:
+        raise AssertionError("the trained flagship's bf16 nets disagree with the JAX package's")
+
+    # (d) the COSMOS layout through cli test, and observe on the device against the CPU
+    stamps = {k: list(gold[k]) for k in ("obs", "psf", "gt")}
+    meta = dict(n_train=n_golden, n_test=n_golden, fov_pixels=48, pixel_scale=0.2, upsample=4, seed=int(g["seed"]),
+                snrs=[COSMOS_SNR], shear_errs=[], fwhm_errs=[], generator="galsim/COSMOS")
+    cosmos = write_packed_dataset(work / "cosmos", {"train": stamps, "test": stamps},
+                                  {f"obs_{COSMOS_SNR}": stamps["obs"], f"gt_{COSMOS_SNR}": stamps["gt"]}, {}, meta)
+    ckpt = ["--model_save_path", str(TRAINED_DIR), "--checkpoint_name", TRAINED_RUN]
+    xu.x_update_solve.launches = 0
+    rows = cli.main(["test", "--test", "shear", "--methods", method, *ckpt, "--data_path", str(cosmos), "--result_path",
+                     str(work / "cosmos_results"), "--n_gal", str(n_golden), "--eval_batch_size", str(n_golden),
+                     "--snrs", str(COSMOS_SNR), "--device", dev])[method][str(COSMOS_SNR)]["rec_shear"]
+    _sync(device)
+    launches["cosmos"] = xu.x_update_solve.launches
+    cosmos_err = _shear_err(rows, gold["shear"])
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:192, :192] - 95.5
+    gal = np.exp(-(xx**2 / 2 / 14**2 + yy**2 / 2 / 9**2 + 0.3 * xx * yy / 14 / 9)).astype(np.float32)
+    psf_hi = np.exp(-(xx**2 + yy**2) / 2 / 6**2) * (1 + 0.1 * rng.random((192, 192)))
+    psf_hi = (psf_hi / psf_hi.sum()).astype(np.float32)
+    got, want = (observe(gal, psf_hi, sim.noise_sigma(), 50.0, np.random.default_rng(7), device=d)
+                 for d in (device, "cpu"))
+    observe_rel = max(_peak_rel(a.cpu(), b) for a, b in zip(got, want))
+    print(f"trained (d) ({dev}): cli test --test shear --checkpoint_name {TRAINED_RUN} on the goldens written as a "
+          f"COSMOS-layout tree (generator galsim/COSMOS, variant obs_{COSMOS_SNR}): rows against the JAX package's "
+          f"max |dg| / (1 + |g|) {cosmos_err:.3e} (tol {TRAINED_SHEAR_TOL}), x_update_solve launches "
+          f"{launches['cosmos']}; generate_galsim.observe of a 192x192 galaxy on {dev} against the CPU max |d| / "
+          f"max |CPU| {observe_rel:.3e} (tol {OBSERVE_REL_TOL})")
+    if launches["cosmos"] != per_forward or cosmos_err > TRAINED_SHEAR_TOL:
+        raise AssertionError("cli test of the trained checkpoint on the COSMOS-layout tree disagrees with the goldens")
+    if observe_rel > OBSERVE_REL_TOL:
+        raise AssertionError("generate_galsim.observe on the device disagrees with the CPU")
+
+    # (e) the science of the trained weights on phase 7's tree, beside phase 8's seed-0 flagship
+    xu.x_update_solve.launches = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    trained = cli.main(["test", "--test", "shear", "--methods", method, *ckpt, "--data_path", str(root),
+                        "--result_path", str(work / "sweep"), "--n_gal", str(n_gal), "--eval_batch_size", str(batch),
+                        "--snrs", *map(str, snrs), "--device", dev])[method]
+    _sync(device)
+    sweep_s = time.perf_counter() - t0
+    launches["sweep"] = xu.x_update_solve.launches
+    if launches["sweep"] != per_forward * len(snrs) * -(-n_gal // batch):
+        raise AssertionError(f"the trained sweep launched x_update_solve {launches['sweep']} times")
+    truth = json.loads((seed0 / "No_Deconv" / "results.json").read_text())
+    seed0_rows = json.loads((seed0 / method / "results.json").read_text())
+    medians = {snr: (harness.median_ellipticity_error(trained, truth, snr),
+                     harness.median_ellipticity_error(seed0_rows, truth, snr)) for snr in snrs}
+    seconds = time.perf_counter() - t_phase
+    print(f"trained (e) ({dev}, {card}): cli test --test shear of the trained flagship on phase 7's tree, {n_gal} "
+          f"galaxies x {len(snrs)} SNRs at B={batch}: {len(snrs) * n_gal / sweep_s:.1f} gal/s, x_update_solve launches "
+          f"{launches['sweep']}; median |g - g_true| per SNR, trained / seed-0 (phase 8): "
+          + ", ".join(f"{snr} {a:.4f} / {b:.4f}" for snr, (a, b) in medians.items()))
+    print(f"trained ({card}): phase 14 took {seconds:.1f} s; x_update_solve launches {sum(launches.values())}")
+    return {"seconds": seconds, "launches": sum(launches.values()), "rec_rel": rec_rel, "shear_err": shear_err,
+            "bf16_rel": bf16_rel, "cosmos_err": cosmos_err, "medians": medians}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs only on the card", file=sys.stderr)
@@ -1929,6 +2103,8 @@ def main() -> int:
                                  pathlib.Path(tmp) / "dp", train)
         measure = phase_measurement(device, card, fp32, pathlib.Path(tmp) / "data", models)
         scripts = phase_scripts(device, card, fp32, pathlib.Path(tmp) / "data", models, pathlib.Path(tmp) / "scripts")
+        trained = phase_trained(device, card, pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "results",
+                                pathlib.Path(tmp) / "trained")
     print(f"evaluation ({card}): cli generate {gen['gal_per_s']:.1f} gal/s ({gen['scenes_per_s']:.1f} scenes/s); "
           f"cli test flagship shear sweep {test['rates'][('Unrolled_ADMM_Gaussian(8)', 'shear')]:.1f} gal/s; "
           "zoo shear sweeps " + ", ".join(f"{k} {v:.1f}" for k, v in zoo["rates"].items()) + " gal/s")
@@ -1957,13 +2133,17 @@ def main() -> int:
           f"{timings['loop8']['ms_per_call']:.3f} ms a call; reconcile "
           + ", ".join(f"{k} {v['gal_per_sec']:.1f}" for k, v in scripts["reconcile"].items())
           + f" gal/s; phase 13 {scripts['seconds']:.1f} s")
+    print(f"trained flagship ({card}): against the JAX package's goldens rec {trained['rec_rel']:.3e}, g "
+          f"{trained['shear_err']:.3e} (1 + |g|), bf16 rec {trained['bf16_rel']:.3e}, the COSMOS-layout cli test's g "
+          f"{trained['cosmos_err']:.3e}; phase 14 {trained['seconds']:.1f} s")
     # the main paths' runs: one fp32 pipeline forward, the cli's epoch of training, the flagship's eval sweeps,
     # the online run, the device-resident epoch, phase 11's data-parallel epoch, steps and sweeps (each rank's),
-    # phase 12's in-process bench run, MFU reports and tutorial, and phase 13's scripts in this process
+    # phase 12's in-process bench run, MFU reports and tutorial, phase 13's scripts in this process, and phase 14's
+    # trained forwards and sweeps
     kernel["launches"] = (fp32["launches"] + train["forward_launches"] + test["launches"]["Unrolled_ADMM_Gaussian(8)"]
                           + online["forward_launches"] + resident["forward_launches"] + dp["launches"][0]
                           + sum(f for f, _ in dp["b_launches"]) + sum(sum(r["launches"]) for r in dp["sweeps"].values())
-                          + measure["launches"] + scripts["launches"]["forward"])
+                          + measure["launches"] + scripts["launches"]["forward"] + trained["launches"])
     kernel_bwd["launches"] = (train["backward_launches"] + online["backward_launches"] + resident["backward_launches"]
                               + dp["launches"][1] + sum(b for _, b in dp["b_launches"])
                               + scripts["launches"]["backward"])

@@ -129,6 +129,8 @@ def _cmd_test(ns):
     if ns.checkpoint_name:
         # trained weights (the reference's model_file); 0 = the best-validation epoch of the run's history
         ep = ns.checkpoint_epoch or best_epoch(cfg.model_save_path, ns.checkpoint_name)
+        if not ep:  # never the seed's weights in place of a missing checkpoint
+            raise FileNotFoundError(f"no checkpoint of {ns.checkpoint_name} under {cfg.model_save_path}")
         state_dict = unpack_variables(restore_checkpoint(cfg.model_save_path, ns.checkpoint_name, ep))
         logging.info("loaded %s epoch %s", ns.checkpoint_name, ep)
 

@@ -1,6 +1,6 @@
 """Adaptive-moments (elliptical-Gaussian-fit) shear estimation (counterpart of
-``galaxy_deconv_tpu/metrics/adaptive_moments.py``, without its ngmix
-cross-check: ngmix is not installed).
+``galaxy_deconv_tpu/metrics/adaptive_moments.py``; its ngmix cross-check
+runs where the optional ngmix package is installed).
 
 The classic adaptive-moments fixed point (HSM/KSB family, Hirata & Seljak
 2003): an elliptical Gaussian weight is iterated until its covariance matches
@@ -14,6 +14,7 @@ launched back to back on the device (the JAX package's ``lax.fori_loop``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -73,3 +74,16 @@ def estimate_shear_adaptive(images: torch.Tensor, n_iter: int = 30) -> torch.Ten
     g_over_e = 1.0 / (1.0 + torch.sqrt(torch.clamp_min(1.0 - e_safe**2, 0.0)))
     g1, g2 = m["e1"] * g_over_e, m["e2"] * g_over_e
     return torch.stack([g1, g2, torch.hypot(g1, g2)], dim=-1)
+
+
+def estimate_shear_ngmix_reference(obs: np.ndarray, psf: np.ndarray):
+    """CPU cross-check via the real ngmix package when installed
+    (the reference's bootstrapper recipe, utils/utils_ngmix.py)."""
+    import ngmix  # optional dependency
+
+    jac = ngmix.DiagonalJacobian(row=obs.shape[0] / 2, col=obs.shape[1] / 2, scale=0.2)
+    psf_obs = ngmix.Observation(psf, jacobian=jac)
+    o = ngmix.Observation(obs, jacobian=jac, psf=psf_obs)
+    am = ngmix.admom.AdmomFitter()
+    res = am.go(o, 0.3)
+    return res["e1"], res["e2"]

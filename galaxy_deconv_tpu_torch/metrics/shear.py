@@ -129,3 +129,21 @@ def estimate_shear(images: torch.Tensor, psf: torch.Tensor | None = None, sigma_
     g1 = e1 / r1e
     g2 = e2 / r1e
     return torch.stack([g1, g2, torch.sqrt(g1**2 + g2**2)], dim=-1)
+
+
+def estimate_shear_fpfs_reference(obs: np.ndarray, psf: np.ndarray | None = None, sigma_arcsec: float = 0.6):
+    """CPU cross-check using the real fpfs package when installed
+    (exact reference metric; reference ``utils/utils_test.py:33-49``).
+    When fpfs is absent, use :func:`...metrics.fpfs_numpy.estimate_shear_numpy`
+    — the auditable NumPy twin of this module's algorithm."""
+    import fpfs  # optional dependency
+
+    if psf is None:
+        psf = delta_psf(obs.shape[0], obs.shape[1])
+    task = fpfs.image.measure_source(psf, noiFit=None, sigma_arcsec=sigma_arcsec, pix_scale=0.2)
+    mms = task.measure(obs - obs.min())
+    ells = fpfs.catalog.fpfsM2E(mms, const=1, noirev=False)
+    resp = ells["fpfs_R1E"][0]
+    g1 = ells["fpfs_e1"][0] / resp
+    g2 = ells["fpfs_e2"][0] / resp
+    return g1, g2, float(np.hypot(g1, g2))

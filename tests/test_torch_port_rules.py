@@ -5,7 +5,7 @@ scripts and tutorials (``scripts/*_torch.py`` but the bf16 cross-check,
 ``examples/*_torch.py``) import with jax, flax, orbax and the JAX package
 blocked, and chip_smoke.py's pipeline,
 training (through ``cli train``), generate, test, zoo, trainers,
-data-parallel, measurement and scripts phases and the package's ``python -m`` entry point
+data-parallel, measurement, scripts and trained-flagship phases and the package's ``python -m`` entry point
 (``generate`` then ``test``) run on the CPU (at a tiny size, through the plain
 x-update solve and its plain backward) with them blocked, the data-parallel
 phase's ranks too.  chip_smoke.py exits non-zero and prints no
@@ -371,3 +371,34 @@ print(f"scripts phase ok in {{time.perf_counter() - t0:.1f}} s")
     for line in ("equal to cli test's of the same checkpoint bit for bit: True", "byte-identical except []",
                  "full rows equal phase 4's bit for bit: True"):
         assert line in res.stdout
+
+
+def test_chip_smoke_trained_phase_runs_on_cpu_without_jax(tmp_path):
+    """Phase 14 in this JAX-blocked process on 4 golden stamps: the committed
+    trained flagship from ``trained_port/`` against the JAX package's goldens,
+    the COSMOS-layout tree through ``cli test``, ``observe`` on the CPU
+    against itself, and the trained sweep on a tree ``cli generate`` writes at
+    a 16-sample pupil beside a seed-0 sweep of the same galaxies."""
+    body = f"""
+import importlib.util, pathlib, time, torch
+t0 = time.perf_counter()
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)
+torch.set_num_threads(2)
+cpu = torch.device("cpu")
+tmp = pathlib.Path({str(tmp_path)!r})
+cs.cli.main(["generate", "--data_path", str(tmp / "data"), "--n_train", "2", "--n_test", "3", "--pupil_n", "16",
+             "--chunk", "4", "--seed", "0", "--device", "cpu", "--errs", "0.01"])
+cs.cli.main(["test", "--data_path", str(tmp / "data"), "--result_path", str(tmp / "results"), "--n_gal", "3",
+             "--eval_batch_size", "2", "--snrs", "20", "100", "--device", "cpu", "--methods", "No_Deconv",
+             "Unrolled_ADMM_Gaussian(8)"])
+res = cs.phase_trained(cpu, "cpu", tmp / "data", tmp / "results", tmp / "trained", n_golden=4, n_gal=3, batch=2,
+                       snrs=(20, 100))
+assert res["launches"] == 0  # CPU tensors take the plain solve
+assert res["rec_rel"] <= cs.TRAINED_REC_REL_TOL and res["cosmos_err"] <= cs.TRAINED_SHEAR_TOL
+print(f"trained phase ok in {{time.perf_counter() - t0:.1f}} s")
+"""
+    res = run_blocked(body, timeout=600, env={**ENV, "OMP_NUM_THREADS": "2"})
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "trained phase ok" in res.stdout, res.stdout[-2000:]
+    assert "the pipeline's equal to the file's" in res.stdout
